@@ -1337,18 +1337,16 @@ class TorchReduction:
     Measurement (and its event-scoped incremental maintenance) stays on the
     numpy side; the cell arrays are copied to the device once per memo key
     (``copies`` / ``copy_bytes`` count that traffic). Topologies with tp,
-    dp or pp equal to 1 take the reference's own numpy path. ``dtype``
-    defaults to float64, where the result matches the loop oracle to
-    rounding.
+    dp or pp equal to 1 take the reference's own numpy path. Runs in
+    float64, where the result matches the loop oracle to rounding.
     """
 
     name = "torch"
     tolerance = 1e-12
-    default_dtype = torch.float64
+    dtype = torch.float64
 
-    def __init__(self, device=None, dtype: torch.dtype | None = None) -> None:
+    def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
-        self.dtype = self.default_dtype if dtype is None else dtype
         self.copies = 0
         self.copy_bytes = 0
 
@@ -1422,13 +1420,13 @@ class TorchReduction:
 class CudaReduction(TorchReduction):
     """Fused-kernel backend: one launch of the hand-written CUDA kernel
     (:func:`repro_torch.kernels.cell_reduce.cell_reduce`) per evaluation —
-    the twin of the reference's ``PallasReduction``. ``dtype`` defaults to
-    float32, the accelerator's width; ``tolerance`` reflects float32
-    arithmetic against the float64 oracle."""
+    the twin of the reference's ``PallasReduction``. Runs in float32, the
+    accelerator's width; ``tolerance`` reflects float32 arithmetic against
+    the float64 oracle."""
 
     name = "cuda"
     tolerance = 1e-4
-    default_dtype = torch.float32
+    dtype = torch.float32
 
     _reduce = staticmethod(cell_reduce)
 

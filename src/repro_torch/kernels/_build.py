@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}   # (library, symbol) -> typed ctypes function
 _LOCK = threading.Lock()
 
 
@@ -108,12 +109,23 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, name: str, err: int) -> None:
+def entry(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """``symbol`` of ``csrc/<name>.cu`` with its C signature set, bound once
+    per process: later calls are one dictionary lookup, with no lock and no
+    signature to set again."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def check(name: str, err: int) -> None:
     """Raise when a launch returned a CUDA error code (``cudaGetLastError``
     right after the launches, as the C entry point reports it)."""
     if err != 0:
-        fn = getattr(lib, f"{name}_error_string")
-        fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_int]
+        fn = entry(name, f"{name}_error_string", [ctypes.c_int], ctypes.c_char_p)
         msg = fn(err).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")

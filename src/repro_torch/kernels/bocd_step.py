@@ -23,6 +23,7 @@ the device; only (B,) vectors come back to the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -162,14 +163,18 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"bocd_step: {name} must be contiguous")
 
 
-def _signature(lib: ctypes.CDLL, fn_name: str):
-    fn = getattr(lib, fn_name)
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = (
-        [p] * 8 + [i, i] + [d] * 5 + [p] * 8 + [ctypes.c_longlong] + [p, p, p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
+_p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+#: C signature of ``bocd_step_f32`` / ``bocd_step_f64``
+_ARGTYPES = (
+    [_p] * 8 + [_i, _i] + [_d] * 5 + [_p] * 8 + [ctypes.c_longlong] + [_p, _p, _p]
+)
+_SYMBOL = {torch.float32: "bocd_step_f32", torch.float64: "bocd_step_f64"}
+
+
+@functools.cache
+def _threads() -> int:
+    """Threads per block of the column passes (a constant of the library)."""
+    return _build.entry("bocd_step", "bocd_step_threads", [])()
 
 
 def bocd_step(
@@ -203,13 +208,8 @@ def bocd_step(
     _check("kappa", kappa, (k, 1), dt, dev)
     _check("alpha", alpha, (k, 1), dt, dev)
     _check("rl", rl, (k, 1), torch.int32, dev)
-    lib = _build.load("bocd_step")
-    threads_fn = lib.bocd_step_threads
-    threads_fn.argtypes = []
-    threads_fn.restype = ctypes.c_int
-    threads = threads_fn()
-    nblk = -(-b // threads)
-    fn = _signature(lib, "bocd_step_f32" if dt == torch.float32 else "bocd_step_f64")
+    fn = _build.entry("bocd_step", _SYMBOL[dt], _ARGTYPES)
+    nblk = -(-b // _threads())
     log_r_out = torch.empty((k, b), dtype=dt, device=dev)
     mu_out = torch.empty((k, b), dtype=dt, device=dev)
     beta_out = torch.empty((k, b), dtype=dt, device=dev)
@@ -231,7 +231,7 @@ def bocd_step(
             rl_out.data_ptr(), p0.data_ptr(), partial.data_ptr(),
             partial.numel(), cp_norm.data_ptr(), victim.data_ptr(), stream,
         )
-    _build.check(lib, "bocd_step", err)
+    _build.check("bocd_step", err)
     bocd_step.launches += 1
     return log_r_out, mu_out, beta_out, kappa_out, alpha_out, rl_out, p0
 

@@ -73,12 +73,10 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"cell_reduce: {name} must be contiguous")
 
 
-def _signature(lib: ctypes.CDLL, fn_name: str):
-    fn = getattr(lib, fn_name)
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [p] * 5 + [i] * 3 + [d] * 5 + [p] * 5 + [p]
-    fn.restype = ctypes.c_int
-    return fn
+_p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+#: C signature of ``cell_reduce_f32`` / ``cell_reduce_f64``
+_ARGTYPES = [_p] * 5 + [_i] * 3 + [_d] * 5 + [_p] * 5 + [_p]
+_SYMBOL = {torch.float32: "cell_reduce_f32", torch.float64: "cell_reduce_f64"}
 
 
 def cell_reduce(
@@ -106,9 +104,8 @@ def cell_reduce(
     _check("dp_edge", dp_edge, (pp, dp, tp), dt, dev)
     _check("hop_bw", hop_bw, (pp - 1, dp), dt, dev)
     _check("alloc_off", alloc_off, (dp,), dt, dev)
-    lib = _build.load("cell_reduce")
-    fn = _signature(lib, "cell_reduce_f32" if dt == torch.float32 else "cell_reduce_f64")
-    t = torch.empty((1, 1), dtype=dt, device=dev)
+    fn = _build.entry("cell_reduce", _SYMBOL[dt], _ARGTYPES)
+    t =torch.empty((1, 1), dtype=dt, device=dev)
     stage_max = torch.empty((1, dp), dtype=dt, device=dev)
     tp_bw = torch.empty((pp, dp), dtype=dt, device=dev)
     dp_bw = torch.empty((pp, tp), dtype=dt, device=dev)
@@ -122,7 +119,7 @@ def cell_reduce(
             float(c_dp), t.data_ptr(), stage_max.data_ptr(), tp_bw.data_ptr(),
             dp_bw.data_ptr(), stage.data_ptr(), stream,
         )
-    _build.check(lib, "cell_reduce", err)
+    _build.check("cell_reduce", err)
     cell_reduce.launches += 1
     return t, stage_max, tp_bw, dp_bw
 

@@ -156,6 +156,15 @@ def test_simulator_tracks_reference_through_fault_events():
     assert rb.copies > 10 and rb.copy_bytes > 0
 
 
+@pytest.mark.parametrize("name,dtype", [("torch", torch.float64),
+                                        ("cuda", torch.float32)])
+def test_each_reduction_name_has_one_precision(name, dtype):
+    """The registry name fixes the precision, as in the reference: the
+    plain version runs in float64, the kernel in float32."""
+    rb = S.select_reduction_backend(name, device="cpu")
+    assert rb.dtype == dtype and rb.device.type == "cpu"
+
+
 def test_auto_reduction_needs_the_card_or_an_explicit_cpu():
     job = S.JobSpec(model=_model(ModelSpec), tp=2, dp=2, pp=2, micro_batches=4)
     assert isinstance(S.resolve_reduction_backend("auto", device="cpu"),
