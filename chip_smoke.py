@@ -3,24 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``
-into ``build/repro_torch_kernels/``, holds each against its plain PyTorch
-version on the card, drives the port's paths through their public entry
-points, times the kernels and prints one line per phase. Phases, in order:
+Builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+``nvcc`` into ``build/repro_torch_kernels/``, holds each against its plain
+PyTorch version on the card, drives the port's paths through their public
+entry points, times the kernels and prints one line per phase. Phases, in
+order:
 
 1. environment: torch version, card name and power limit (``nvidia-smi``);
-2. build: both kernels, in parallel, with the build seconds;
+2. build: the four kernels, in parallel, with the build seconds;
 3. kernel vs plain version on the card: ``bocd_step`` at K = 32,
    B = 16,384 over 60 ticks (a step change and a NaN column) and
    ``cell_reduce`` at (8, 160, 8) and (2, 2, 2), in float32 and float64;
+   ``flash_decode`` (GQA rep 4, MQA, per-sequence lengths, valid_len 1 and
+   0, a cache length off the split grid) and ``flash_attention`` (causal,
+   non-causal, a window, a ragged Sq) in float32 and bfloat16;
 4. the fleet screen: ``FleetDetect(n_workers=16384)`` on the ``cuda``
    backend for 200 ticks, flags identical to the numpy ``batched`` backend;
-5. the pipeline (the main path): ``ControlPlane.tick`` over a
+5. the pipeline (slice 1's main path): ``ControlPlane.tick`` over a
    10,240-device ``TrainingSimulator`` with one GPU throttled, both kernels
    launched, Flag / Diagnosis / Mitigation events identical to the float64
    numpy run on the CPU;
-6. times: median CUDA-event time per call of each kernel and of its plain
-   version at the path's shapes, beside the bound.
+6. serving (slice 2's main path): ``repro_torch.launch.serve.serve`` with
+   granite-3-8b at its published width, ``use_kernel``, 8 requests x
+   (1,024 prompt + 64 generated) and ``gpu:1:0.5:5:200`` injected:
+   ``flash_decode`` launched 40 x 64 times, finite logits, the FALCON onset
+   of a CPU run of the same latency loop (token 36, gpu_degradation on
+   gpu:1);
+7. forward: ``model.forward(use_kernel=True)`` over a 4,096-token prompt,
+   ``flash_attention`` launched 40 times, its bf16 logits' difference from
+   the plain blocked attention reported;
+8. times: median CUDA-event time per call of each kernel, of its plain
+   version and, where one PyTorch call computes the same function, of
+   that call, at the paths' shapes, beside the bound;
+9. parity at the published width, kernel route against plain route:
+   teacher-forced decode on the same caches and the 4,096-token forward;
+   bf16 differences reported, float32 (weights upcast exactly) held to a
+   tolerance.
 
 Any failure exits non-zero. The last two lines are a JSON object with one
 entry per kernel and ``{"ok": true, "device": {...}}``. The script imports
@@ -40,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 #: H100 SXM data-sheet peaks (dense, no sparsity) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # Tolerances of kernel vs plain version, both on the card. float64: the two
 # differ only in summation order and library rounding. float32: last-ulp
@@ -50,6 +69,31 @@ TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-6)}  # (rtol, atol)
 # pipeline over a 10,240-device job (the documented 10k-device run).
 FLEET_WORKERS, FLEET_TICKS = 16384, 200
 PIPELINE_TICKS = 400
+
+# Slice 2's paths: granite-3-8b at its published width (40 layers, d_model
+# 4096, 32 heads / 8 KV heads of 128), 8 requests x (1,024 prompt + 64
+# generated), the fail-slow of the reference CLI's docstring; a forward
+# pass over 4,096 tokens.
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-3-8b", 8, 1024, 64
+SERVE_INJECT = "gpu:1:0.5:5:200"
+#: the onset the full-width run must flag: (token, root cause, components)
+SERVE_EVENT = (36, "gpu_degradation", ["gpu:1"])
+FORWARD_LEN = 4096
+TEACHER_STEPS = 8
+
+# Tolerances of the attention kernels against their plain versions: the
+# reference's (tests/test_kernels.py:17). float32: summation order only;
+# bfloat16: both accumulate in float32 and round the result once to bf16.
+ATT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
+# Model logits, kernel route vs plain route on the same weights and caches,
+# held in float32 (weights upcast exactly): there the two routes differ only
+# in the attention's summation order (~1e-6 relative per layer). In bf16 one
+# rounding of an attention output either way (2^-8 relative) grows through
+# 40 random-weight layers to ~0.3 in logits of magnitude ~5 (measured on an
+# H100 at this width), so bf16 logits are reported, not held to a
+# tolerance. The same growth (~x15 relative) of the float32 differences
+# gives ~1e-4; the tolerance leaves ten times that.
+PARITY_TOL = (1e-3, 1e-3)  # (rtol, atol), float32
 
 
 class SmokeError(RuntimeError):
@@ -81,16 +125,22 @@ def phase_env(torch) -> str:
 
 
 # ------------------------------------------------------------------ phase 2
+KERNELS = ("bocd_step", "cell_reduce", "flash_decode", "flash_attention")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["bocd_step", "cell_reduce"], verbose=True)
+    logs = _build.build_all(KERNELS, verbose=True)
     secs = time.perf_counter() - t0
     for name, out in logs.items():
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in out.splitlines()
+                if "registers" in ln or "spill" in ln and "0 bytes spill" not in ln]
+        if len(regs) > 6:
+            regs = regs[:6] + [f"... {len(regs) - 6} more lines"]
         log(f"[2 build] {name}: " + (" | ".join(regs) or "built"))
-    log(f"[2 build] both kernels built in {secs:.2f} s (parallel nvcc)")
+    log(f"[2 build] {len(KERNELS)} kernels built in {secs:.2f} s (parallel nvcc)")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -216,6 +266,96 @@ def phase_kernels(torch, np):
             errs[("cell_reduce", dt_name, shape)] = worst
             log(f"[3 kernels] cell_reduce {dt_name} pp,dp,tp={shape}: max abs err vs "
                 f"plain {worst:.3e}; t rel err vs numpy simulator {rel_sim:.3e}")
+    return errs
+
+
+def _att_err(torch, name, got, want, dt_name):
+    """Max abs error of an attention kernel against its plain version under
+    ``ATT_TOL``; the output must be finite."""
+    rtol, atol = ATT_TOL[dt_name]
+    g, w = got.double(), want.double()
+    need(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
+    need(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    diff = (g - w).abs()
+    bad = diff > atol + rtol * w.abs()
+    if bool(bad.any()):
+        raise SmokeError(f"{name}: {int(bad.sum())} entries outside rtol={rtol} "
+                         f"atol={atol}; max abs err {float(diff.max()):.3e}")
+    return float(diff.max())
+
+
+def _normal(torch, seed, shape, dtype):
+    """Standard normal values made on the card from ``seed``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device="cuda").to(dtype)
+
+
+DECODE_CASES = (   # label, B, Skv, H, KVH, hd, valid_len
+    ("GQA rep 4 (the serve shape)", 8, 1088, 32, 8, 128, 1088),
+    ("MQA", 2, 384, 8, 1, 64, 100),
+    ("per-sequence lengths", 4, 256, 4, 2, 64, [1, 17, 128, 256]),
+    ("valid_len 1", 3, 128, 4, 2, 32, 1),
+    ("valid_len 0", 2, 64, 4, 2, 64, 0),
+    ("per-sequence with zeros", 4, 300, 8, 2, 128, [0, 5, 0, 300]),
+    ("Skv 1,000 off the split grid", 2, 1000, 16, 4, 128, 999),
+)
+ATTENTION_CASES = (   # label, B, Sq, Skv, H, KVH, hd, causal, window
+    ("causal GQA", 1, 256, 256, 4, 2, 64, True, 0),
+    ("non-causal", 1, 128, 128, 2, 2, 64, False, 0),
+    ("window 48", 1, 200, 200, 4, 2, 128, True, 48),
+    ("ragged Sq 130", 2, 130, 130, 4, 4, 128, True, 0),
+    ("MQA, Sq 96 != Skv 160, non-causal", 1, 96, 160, 8, 1, 64, False, 0),
+    ("the forward shape", 1, 4096, 4096, 32, 8, 128, True, 0),
+)
+
+
+def phase_attention_kernels(torch):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_reference
+
+    errs = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        worst, parts = 0.0, []
+        for i, (label, b, skv, h, kvh, hd, valid) in enumerate(DECODE_CASES):
+            q = _normal(torch, 3 * i, (b, h, hd), dt)
+            k = _normal(torch, 3 * i + 1, (b, skv, kvh, hd), dt)
+            v = _normal(torch, 3 * i + 2, (b, skv, kvh, hd), dt)
+            vl = (torch.tensor(valid, dtype=torch.int32, device="cuda")
+                  if isinstance(valid, list) else valid)
+            got = flash_decode(q, k, v, vl)
+            want = flash_decode_reference(q, k, v, vl)
+            torch.cuda.synchronize()
+            e = _att_err(torch, f"flash_decode {dt_name} {label}", got, want, dt_name)
+            if isinstance(valid, list):
+                for row, n in enumerate(valid):
+                    need(n > 0 or not bool(got[row].float().abs().max()),
+                         f"flash_decode {dt_name} {label}: row {row} with valid_len 0 "
+                         "is not zeros")
+            elif valid == 0:
+                need(not bool(got.float().abs().max()),
+                     f"flash_decode {dt_name}: valid_len 0 is not zeros")
+            worst = max(worst, e)
+            parts.append(f"{label} {e:.2e}")
+        errs[("flash_decode", dt_name)] = worst
+        log(f"[3 kernels] flash_decode {dt_name}: max abs err vs plain " + "; ".join(parts))
+        worst, parts = 0.0, []
+        for i, (label, b, sq, skv, h, kvh, hd, causal, window) in enumerate(ATTENTION_CASES):
+            q = _normal(torch, 50 + 3 * i, (b, sq, h, hd), dt)
+            k = _normal(torch, 51 + 3 * i, (b, skv, kvh, hd), dt)
+            v = _normal(torch, 52 + 3 * i, (b, skv, kvh, hd), dt)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_reference(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            e = _att_err(torch, f"flash_attention {dt_name} {label}", got, want, dt_name)
+            worst = max(worst, e)
+            parts.append(f"{label} {e:.2e}")
+            del q, k, v, got, want
+        errs[("flash_attention", dt_name)] = worst
+        log(f"[3 kernels] flash_attention {dt_name}: max abs err vs plain " + "; ".join(parts))
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -400,7 +540,236 @@ def phase_main_path(torch, np, card, ref):
     return launches
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------- phases 6 and 7
+def _zero_launches():
+    from repro_torch.kernels.bocd_step import bocd_step
+    from repro_torch.kernels.cell_reduce import cell_reduce
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+
+    wrappers = {"bocd_step": bocd_step, "cell_reduce": cell_reduce,
+                "flash_decode": flash_decode, "flash_attention": flash_attention}
+    for w in wrappers.values():
+        w.launches = 0
+    return lambda: {n: w.launches for n, w in wrappers.items()}
+
+
+def _falcon_reference(cfg):
+    """The serve driver's latency loop on the CPU without the model: the
+    port's simulator, injector and detector, as ``serve`` runs them."""
+    from repro_torch.cluster.injector import FailSlowInjector
+    from repro_torch.core.detector import FalconDetect
+    from repro_torch.launch.serve import VERIFY_WINDOW, parse_injection, serve_simulator
+
+    sim = serve_simulator(cfg, SERVE_PROMPT + SERVE_GEN, device="cpu")
+    injector = FailSlowInjector([parse_injection(SERVE_INJECT)])
+    detector = FalconDetect(cluster=sim, verify_window=VERIFY_WINDOW)
+    wall, events = 0.0, []
+    for step in range(SERVE_GEN):
+        injector.apply(sim.state, wall)
+        latency = sim.iteration_time()
+        wall += latency
+        ev = detector.observe(latency, wall)
+        if ev is not None:
+            events.append((step, ev.root_cause.value, list(ev.components),
+                           ev.t_healthy, ev.t_slow))
+    return events
+
+
+def _logit_diff(torch, got, want, vocab):
+    """(max abs difference, entries outside PARITY_TOL, relative L2
+    difference, argmax agreement) of two logit tensors (..., Vp), over the
+    ``vocab`` real columns (the padding holds -1e9 in both)."""
+    got, want = got[..., :vocab], want[..., :vocab]
+    g, w = got.double(), want.double()
+    need(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()),
+         "non-finite logits")
+    diff = (g - w).abs()
+    rtol, atol = PARITY_TOL
+    bad = int((diff > atol + rtol * w.abs()).sum())
+    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    agree = float((got.argmax(-1) == want.argmax(-1)).double().mean())
+    return float(diff.max()), bad, rel, agree
+
+
+def _teacher_forced(torch, cfg, params, prompt):
+    """Decode TEACHER_STEPS tokens with the kernel route; before each step
+    the plain route runs on a copy of the same caches with the same token
+    (the plain route's token is fed to both). Returns the per-step
+    ``_logit_diff`` results."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    total = SERVE_PROMPT + TEACHER_STEPS
+    out = []
+    with torch.no_grad():
+        logits, caches = make_prefill_step(cfg, SERVE_PROMPT)(params, {"tokens": prompt})
+        caches = transformer.grow_caches(caches, cfg, total)
+        kern = make_decode_step(cfg, total, use_kernel=True)
+        plain = make_decode_step(cfg, total, use_kernel=False)
+        tok = torch.argmax(logits[:, -1], dim=-1).reshape(SERVE_B, 1)
+        for step in range(TEACHER_STEPS):
+            copy = {s: {k: t.clone() for k, t in c.items()} for s, c in caches.items()}
+            want, _ = plain(params, tok, copy, SERVE_PROMPT + step)
+            del copy
+            got, caches = kern(params, tok, caches, SERVE_PROMPT + step)
+            out.append(_logit_diff(torch, got, want, cfg.vocab_size))
+            tok = torch.argmax(want[:, -1], dim=-1).reshape(SERVE_B, 1)
+    return out
+
+
+def _summary(diffs):
+    worst = max(d[0] for d in diffs)
+    bad = sum(d[1] for d in diffs)
+    rel = max(d[2] for d in diffs)
+    agree = sum(d[3] for d in diffs) / len(diffs)
+    return worst, bad, rel, agree
+
+
+def phase_serve(torch, np, card):
+    """Slice 2's main path: the port's serve driver at the published width
+    of granite-3-8b with the kernel route. Launch counts are zeroed just
+    before and read just after."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(SERVE_ARCH)   # --no-smoke: the published width
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)),
+                             device="cuda")
+    ref_events = _falcon_reference(cfg)
+    need([e[:3] for e in ref_events] == [SERVE_EVENT],
+         f"the CPU latency loop flags {[e[:3] for e in ref_events]}, expected "
+         f"{[SERVE_EVENT]}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _zero_launches()
+    res = serve(cfg, params, prompt, gen=SERVE_GEN, use_kernel=True,
+                inject=[SERVE_INJECT], device="cuda")
+    torch.cuda.synchronize()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+
+    need(launches["flash_decode"] == cfg.num_layers * SERVE_GEN,
+         f"flash_decode launched {launches['flash_decode']} times, expected "
+         f"{cfg.num_layers} x {SERVE_GEN}")
+    need(bool(torch.isfinite(res.logits.float()).all()), "serve: non-finite logits")
+    need(bool(torch.isfinite(res.prefill_logits.float()).all()),
+         "serve: non-finite prefill logits")
+    need(res.tokens.shape == (SERVE_B, SERVE_GEN), f"serve: tokens {res.tokens.shape}")
+    need(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size,
+         "serve: a token in the padded vocab")
+    got = [(step, ev.root_cause.value, list(ev.components), ev.t_healthy, ev.t_slow)
+           for step, ev in res.events]
+    need(got == ref_events, f"serve flags {got}, the CPU loop {ref_events}")
+    decode_s = sum(res.step_s)
+    log(f"[6 serve] {cfg.name} published width ({n_params / 1e9:.3f} B parameters, "
+        f"bf16, init {init_s:.2f} s), {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
+        f"{SERVE_GEN} generated), use_kernel, inject {SERVE_INJECT}; card: {card}")
+    log(f"[6 serve] launches {launches}; FALCON flags {got[0][1]} on {got[0][2]} at "
+        f"token {got[0][0]} ({got[0][3]:.4f} s -> {got[0][4]:.4f} s), the same as "
+        f"the CPU latency loop; logits finite")
+    log(f"[6 serve] prefill {res.prefill_s:.4f} s (host clock, synchronised); decode "
+        f"{SERVE_B * SERVE_GEN / decode_s:.1f} tokens/s on the host clock "
+        f"({decode_s / SERVE_GEN * 1e3:.3f} ms per step, median "
+        f"{statistics.median(res.step_s) * 1e3:.3f} ms); peak memory "
+        f"{peak / 2**30:.2f} GiB; card: {card}")
+    return cfg, params, prompt, launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def phase_forward(torch, np, card, cfg, params):
+    """``model.forward(use_kernel=True)`` over FORWARD_LEN tokens in bf16;
+    launches zeroed just before the kernel route and read just after. The
+    plain route's logits are reported beside it (held to a tolerance in
+    float32, phase 9). Returns the launches and the tokens."""
+    from repro_torch.models import model as model_lib
+
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, FORWARD_LEN)),
+                             device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        read = _zero_launches()
+        t0 = time.perf_counter()
+        got, _ = model_lib.forward(params, {"tokens": tokens}, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        launches = read()
+        t0 = time.perf_counter()
+        want, _ = model_lib.forward(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    worst, _, rel, agree = _logit_diff(torch, got, want, cfg.vocab_size)
+    log(f"[7 forward] {cfg.name} bf16 forward over (1, {FORWARD_LEN}) tokens, "
+        f"use_kernel: launches {launches}; vs the plain blocked attention: max abs "
+        f"logit diff {worst:.3e}, relative L2 {rel:.3e}, argmax agrees on "
+        f"{agree:.4%} of positions; {kern_s:.3f} s kernel route, {plain_s:.3f} s "
+        f"plain route (host clock); card: {card}")
+    need(launches["flash_attention"] == cfg.num_layers,
+         f"flash_attention launched {launches['flash_attention']} times, expected "
+         f"{cfg.num_layers}")
+    return launches, tokens
+
+
+def phase_parity(torch, card, cfg, params, prompt, tokens):
+    """Kernel route vs plain route at the published width: teacher-forced
+    decode on the same caches and the 4,096-token forward. bf16 reported;
+    float32 (weights upcast exactly) held to PARITY_TOL."""
+    from dataclasses import replace
+
+    from repro_torch.models import model as model_lib
+
+    diffs = _teacher_forced(torch, cfg, params, prompt)
+    worst, bad, rel, agree = _summary(diffs)
+    log(f"[9 parity] bf16 teacher-forced decode, kernel vs plain route on the same "
+        f"caches, {TEACHER_STEPS} steps: max abs logit diff {worst:.3e}, relative L2 "
+        f"{rel:.3e}, argmax agrees {agree:.4%}")
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = _as_float(torch, params)
+    torch.cuda.empty_cache()
+    diffs = _teacher_forced(torch, cfg32, params32, prompt)
+    worst, bad, rel, agree = _summary(diffs)
+    log(f"[9 parity] float32 teacher-forced decode, kernel vs plain route on the "
+        f"same caches, {TEACHER_STEPS} steps: max abs logit diff {worst:.3e}, "
+        f"{bad} entries outside rtol/atol {PARITY_TOL[0]}/{PARITY_TOL[1]}, relative "
+        f"L2 {rel:.3e}, argmax agrees {agree:.4%}")
+    fwd_bad = 0
+    with torch.no_grad():
+        got, _ = model_lib.forward(params32, {"tokens": tokens}, cfg32, use_kernel=True)
+        want, _ = model_lib.forward(params32, {"tokens": tokens}, cfg32)
+        f_worst, fwd_bad, f_rel, f_agree = _logit_diff(torch, got, want, cfg.vocab_size)
+        del got, want
+    log(f"[9 parity] float32 forward over (1, {FORWARD_LEN}), kernel vs plain route: "
+        f"max abs logit diff {f_worst:.3e}, {fwd_bad} entries outside rtol/atol "
+        f"{PARITY_TOL[0]}/{PARITY_TOL[1]}, relative L2 {f_rel:.3e}, argmax agrees "
+        f"{f_agree:.4%}; card: {card}")
+    del params32
+    torch.cuda.empty_cache()
+    need(bad == 0, f"float32 teacher-forced decode: {bad} logits outside tolerance")
+    need(fwd_bad == 0, f"float32 forward: {fwd_bad} logits outside tolerance")
+
+
+def _as_float(torch, tree):
+    return {k: _as_float(torch, v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+# ------------------------------------------------------------------ phase 8
 def _device_ms(torch, fn, runs=100, chunk=10):
     """Median device time of ``fn()`` over ``runs`` calls. Each chunk of
     calls is queued behind a sleeping kernel long enough to cover the host's
@@ -455,7 +824,7 @@ def phase_times(torch, np, card, errs, launches):
     out.append(_row("bocd_step", "src/repro_torch/kernels/csrc/bocd_step.cu",
                     "src/repro/kernels/bocd_step.py:179", launches["bocd_step"],
                     errs[("bocd_step", "float32", 16384)], ms, plain_ms, nbytes, flops))
-    log(f"[6 times] bocd_step f32 K={k} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+    log(f"[8 times] bocd_step f32 K={k} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(device, median of >=100); per call with host {call_ms:.4f} / "
         f"{plain_call_ms:.4f} ms; bound {out[-1]['bound_ms']:.4f} ms ({out[-1]['bound_by']}); "
         f"card: {card}")
@@ -468,7 +837,7 @@ def phase_times(torch, np, card, errs, launches):
     ms1, call1 = _device_ms(torch, lambda: bocd_step(*args1))
     plain1, plain_call1 = _device_ms(torch, lambda: bocd_step_reference(*args1))
     bocd_step.launches = saved
-    log(f"[6 times] bocd_step f32 K={k} B=1 (the pipeline's screen): kernel {ms1:.4f} ms, "
+    log(f"[8 times] bocd_step f32 K={k} B=1 (the pipeline's screen): kernel {ms1:.4f} ms, "
         f"plain {plain1:.4f} ms (device, median of >=100); per call with host "
         f"{call1:.4f} / {plain_call1:.4f} ms; card: {card}")
     # cell_reduce at the 10,240-device job, float32.
@@ -493,7 +862,7 @@ def phase_times(torch, np, card, errs, launches):
                     "src/repro/kernels/cell_reduce.py:87", launches["cell_reduce"],
                     errs[("cell_reduce", "float32", (8, 160, 8))], ms, plain_ms,
                     nbytes, flops))
-    log(f"[6 times] cell_reduce f32 pp,dp,tp=(8,160,8): kernel {ms:.4f} ms, plain "
+    log(f"[8 times] cell_reduce f32 pp,dp,tp=(8,160,8): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (device, median of >=100); per call with host "
         f"{call_ms:.4f} / {plain_call_ms:.4f} ms; bound {out[-1]['bound_ms']:.6f} ms "
         f"({out[-1]['bound_by']}); host-to-device copy of the cells "
@@ -501,16 +870,95 @@ def phase_times(torch, np, card, errs, launches):
     return out
 
 
-def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops):
+def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops,
+         flop_rate=FP32_FLOP_PER_S, library_ms=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "library_ms": library_ms,
     }
+
+
+def _library_ms(torch, fn, label):
+    """Median device ms of one PyTorch call computing the same function
+    (timed here only; the port never calls it), or None where this torch
+    cannot run it."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (TypeError, RuntimeError) as exc:
+        log(f"[8 times] {label}: no library time ({type(exc).__name__}: {exc})")
+        return None
+    return _device_ms(torch, fn)[0]
+
+
+def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_reference
+
+    out = []
+    saved = (flash_decode.launches, flash_attention.launches)
+    bf = torch.bfloat16
+    # flash_decode at the serve's last step: B = 8, 1,088 valid of 1,088.
+    b, h, kvh, hd = SERVE_B, 32, 8, 128
+    for skv in (SERVE_PROMPT + SERVE_GEN, 32768):
+        q = _normal(torch, 90, (b, h, hd), bf)
+        k = _normal(torch, 91, (b, skv, kvh, hd), bf)
+        v = _normal(torch, 92, (b, skv, kvh, hd), bf)
+        valid = skv
+        ms, call_ms = _device_ms(torch, lambda: flash_decode(q, k, v, valid))
+        plain_ms, _ = _device_ms(torch, lambda: flash_decode_reference(q, k, v, valid))
+        kt, vt = k[:, :valid].transpose(1, 2), v[:, :valid].transpose(1, 2)
+        lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, enable_gqa=True), "flash_decode sdpa")
+        nbytes = 2 * b * valid * kvh * hd * 2 + 2 * b * h * hd * 2
+        flops = 4 * b * h * valid * hd
+        row = _row("flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+                   "src/repro/kernels/flash_decode.py:74", serve_launches["flash_decode"],
+                   errs[("flash_decode", "bfloat16")], ms, plain_ms, nbytes, flops,
+                   BF16_FLOP_PER_S, lib_ms)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[8 times] flash_decode bf16 B={b} H={h} KVH={kvh} hd={hd} valid={valid}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib} (device, median "
+            f"of >=100); per call with host {call_ms:.4f} ms; bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB); "
+            f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; card: {card}")
+        if skv == SERVE_PROMPT + SERVE_GEN:
+            out.append(row)
+        del q, k, v, kt, vt
+    # flash_attention at the forward's shape.
+    b, s, h, kvh, hd = 1, FORWARD_LEN, 32, 8, 128
+    q = _normal(torch, 93, (b, s, h, hd), bf)
+    k = _normal(torch, 94, (b, s, kvh, hd), bf)
+    v = _normal(torch, 95, (b, s, kvh, hd), bf)
+    ms, call_ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+                             runs=30)
+    plain_ms, _ = _device_ms(torch, lambda: flash_attention_reference(q, k, v, causal=True),
+                             runs=30)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), "flash_attention sdpa")
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    row = _row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:91", forward_launches["flash_attention"],
+               errs[("flash_attention", "bfloat16")], ms, plain_ms, nbytes, flops,
+               BF16_FLOP_PER_S, lib_ms)
+    out.append(row)
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"[8 times] flash_attention bf16 causal B={b} S={s} H={h} KVH={kvh} hd={hd}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib} (device, median of "
+        f">=30); bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.1f} "
+        f"GFLOP); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; card: {card}")
+    flash_decode.launches, flash_attention.launches = saved
+    return out
 
 
 def main() -> int:
@@ -538,8 +986,15 @@ def main() -> int:
         card = phase_env(torch)
         phase_build()
         errs = phase_kernels(torch, np)
+        errs.update(phase_attention_kernels(torch))
         launches = phase_main_path(torch, np, card, phase_references(np))
+        cfg, params, prompt, serve_launches = phase_serve(torch, np, card)
+        forward_launches, tokens = phase_forward(torch, np, card, cfg, params)
         rows = phase_times(torch, np, card, errs, launches)
+        rows += phase_times_attention(torch, card, errs, serve_launches,
+                                      forward_launches)
+        phase_parity(torch, card, cfg, params, prompt, tokens)
+        del params
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
         need(not leaked, f"modules of jax or the JAX package were loaded: {leaked[:5]}")

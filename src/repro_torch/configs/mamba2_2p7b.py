@@ -1,0 +1,21 @@
+"""Mamba2-2.7B — attention-free SSD (state-space duality) [arXiv:2405.21060]."""
+from repro_torch.configs.base import ArchConfig, SubLayer
+
+CONFIG = ArchConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    num_layers=64,
+    d_model=2560,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    period=(SubLayer("mamba", None),),
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_groups=1,
+    pos_encoding="none",
+    long_context="native",
+    citation="arXiv:2405.21060",
+)

@@ -9,6 +9,8 @@ over mid-stream and the tests can hold both packages to the same state:
 * :func:`fleet_snapshot_from_reference` — a ``FleetDetect.snapshot()`` dict
   taken with the reference's ``batched`` backend, rewritten for the port's
   ``FleetDetect.restore`` under a chosen screening backend.
+* :func:`params_from_numpy` — a model parameter tree (nested dicts of
+  arrays, as ``repro.models.model.init_params`` makes them) as tensors.
 """
 from __future__ import annotations
 
@@ -117,3 +119,25 @@ def fleet_snapshot_from_reference(snap: Mapping, backend: str = "torch") -> dict
             raise ValueError(f"cohort batch {kind!r} is not a BatchedBOCD snapshot")
         cohort["batch"] = ("batch", slots_from_batched(payload))
     return out
+
+
+def _tensor_from_array(a, device, dtype) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy (jax hands out read-only views)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.as_tensor rejects: carry the bits.
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree: Mapping, device, dtype=None) -> dict:
+    """A parameter tree of arrays (numpy, or anything ``np.asarray`` takes:
+    a jax array of bfloat16 arrives as ml_dtypes' bfloat16) as the same
+    tree of tensors on ``device``, bit for bit, or cast to ``dtype`` (a
+    float32 cast of bfloat16 is exact)."""
+    return {
+        name: params_from_numpy(sub, device, dtype) if isinstance(sub, Mapping)
+        else _tensor_from_array(sub, device, dtype)
+        for name, sub in tree.items()
+    }

@@ -1,0 +1,117 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``) and
+blocked attention against the JAX package: the Pallas kernel in interpret
+mode, the materialized oracle ``ref.attention_ref`` and the pure-jnp
+``blocked_attention``, on the same numpy inputs.
+
+On the CPU the wrapper runs the kernel's plain PyTorch version; the CUDA
+kernel itself is held to that version on the card
+(``tests/test_torch_card.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import attention as jattn
+from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention
+
+# The reference's tolerances (tests/test_kernels.py:17).
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def qkv(seed, b, sq, skv, h, kvh, hd, dtype):
+    """The same values as jax arrays and as CPU tensors (bit for bit)."""
+    rng = np.random.default_rng(seed)
+    shapes = {"q": (b, sq, h, hd), "k": (b, skv, kvh, hd), "v": (b, skv, kvh, hd)}
+    j = {n: jnp.asarray(rng.normal(size=s), jnp.float32).astype(dtype)
+         for n, s in shapes.items()}
+    t = params_from_numpy({n: np.asarray(a) for n, a in j.items()}, "cpu")
+    return j, t
+
+
+def f32(x):
+    return np.asarray(x.float() if hasattr(x, "float") else x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,sq,skv,h,kvh,hd,blk",
+    [
+        (1, 128, 128, 4, 4, 64, 64),
+        (2, 256, 256, 4, 2, 64, 128),
+        (1, 64, 64, 8, 1, 32, 32),  # MQA, tiny blocks
+        (1, 192, 192, 2, 2, 64, 64),  # non-power-of-two seq
+    ],
+)
+def test_flash_attention_matches_pallas_and_oracle(b, sq, skv, h, kvh, hd, blk, dtype):
+    j, t = qkv(0, b, sq, skv, h, kvh, hd, getattr(jnp, dtype))
+    got = ops.flash_attention(t["q"], t["k"], t["v"], causal=True)
+    assert got.dtype == t["q"].dtype and got.shape == (b, sq, h, hd)
+    pallas = jops.flash_attention(j["q"], j["k"], j["v"], causal=True,
+                                  block_q=blk, block_k=blk, interpret=True)
+    oracle = jref.attention_ref(j["q"], j["k"], j["v"], causal=True)
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(f32(got), f32(oracle), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_flash_attention_sliding_window(window):
+    j, t = qkv(3, 1, 128, 128, 4, 2, 64, jnp.float32)
+    got = fa.flash_attention(t["q"], t["k"], t["v"], causal=True, window=window)
+    pallas = jops.flash_attention(j["q"], j["k"], j["v"], causal=True, window=window,
+                                  block_q=32, block_k=32, interpret=True)
+    oracle = jref.attention_ref(j["q"], j["k"], j["v"], causal=True, window=window)
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL["float32"])
+    np.testing.assert_allclose(f32(got), f32(oracle), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_noncausal(dtype):
+    j, t = qkv(6, 1, 128, 128, 2, 2, 64, getattr(jnp, dtype))
+    got = fa.flash_attention(t["q"], t["k"], t["v"], causal=False)
+    pallas = jops.flash_attention(j["q"], j["k"], j["v"], causal=False,
+                                  block_q=64, block_k=64, interpret=True)
+    oracle = jref.attention_ref(j["q"], j["k"], j["v"], causal=False)
+    np.testing.assert_allclose(f32(got), f32(pallas), **TOL[dtype])
+    np.testing.assert_allclose(f32(got), f32(oracle), **TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 24)])
+def test_attention_oracle_twin_matches_jax_oracle(causal, window):
+    j, t = qkv(9, 2, 40, 40, 4, 2, 32, jnp.float32)
+    got = ref.attention_ref(t["q"], t["k"], t["v"], causal=causal, window=window)
+    want = jref.attention_ref(j["q"], j["k"], j["v"], causal=causal, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,q_offset,kv_block", [
+    (True, 0, 0, 1024),     # one block: the serve prefill's case
+    (True, 0, 0, 48),       # several blocks, a ragged last one
+    (True, 40, 0, 32),      # sliding window across blocks
+    (False, 0, 0, 64),
+    (True, 0, 16, 32),      # continuation: q starts at position 16
+])
+def test_blocked_attention_matches_jax(dtype, causal, window, q_offset, kv_block):
+    j, t = qkv(11, 2, 100, 100 + q_offset, 4, 2, 64, getattr(jnp, dtype))
+    if q_offset:
+        j["q"], t["q"] = j["q"][:, :84], t["q"][:, :84]
+    got = attention.blocked_attention(t["q"], t["k"], t["v"], causal=causal,
+                                      window=window, q_offset=q_offset,
+                                      kv_block=kv_block)
+    want = jattn.blocked_attention(j["q"], j["k"], j["v"], causal=causal,
+                                   window=window, q_offset=q_offset,
+                                   kv_block=kv_block)
+    assert got.dtype == t["q"].dtype
+    np.testing.assert_allclose(f32(got), f32(want), **TOL[dtype])
+
+
+def test_cpu_calls_do_not_count_as_launches():
+    _, t = qkv(12, 1, 16, 16, 2, 1, 32, jnp.float32)
+    before = fa.flash_attention.launches
+    fa.flash_attention(t["q"], t["k"], t["v"])
+    assert fa.flash_attention.launches == before

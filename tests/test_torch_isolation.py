@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` and running a control
-plane tick loads neither jax nor the JAX package (checked in a fresh
-interpreter), and the default entry points want the card."""
+"""The port stands alone: importing ``repro_torch``, running a control
+plane tick and serving one smoke-size prefill + decode step load neither
+jax nor the JAX package (checked in a fresh interpreter), and the default
+entry points want the card."""
 import os
 import subprocess
 import sys
@@ -30,6 +31,16 @@ _PROGRAM = textwrap.dedent("""
     plane.register_job("job", sim)
     for tick in range(12):
         plane.tick({"job": sim.iteration_time()}, 5.0 * (tick + 1))
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config("granite-3-8b").smoke()
+    params = model_lib.init_params(cfg, 0, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    res = serve(cfg, params, prompt, gen=1, use_kernel=True, device="cpu")
+    assert res.tokens.shape == (2, 1), res.tokens.shape
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -58,3 +69,21 @@ def test_auto_backends_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_model_entry_points_raise_without_a_card():
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    cfg = get_config("granite-3-8b").smoke()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_lib.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_caches(cfg, 1, 4)
+    params = model_lib.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(cfg, params, [[1, 2, 3]], gen=1)
