@@ -3,20 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+Builds the five CUDA kernels from ``src/repro_torch/kernels/csrc`` with
 ``nvcc`` into ``build/repro_torch_kernels/``, holds each against its plain
 PyTorch version on the card, drives the port's paths through their public
 entry points, times the kernels and prints one line per phase. Phases, in
 order:
 
 1. environment: torch version, card name and power limit (``nvidia-smi``);
-2. build: the four kernels, in parallel, with the build seconds;
+2. build: the five kernels, in parallel, with the build seconds;
 3. kernel vs plain version on the card: ``bocd_step`` at K = 32,
    B = 16,384 over 60 ticks (a step change and a NaN column) and
    ``cell_reduce`` at (8, 160, 8) and (2, 2, 2), in float32 and float64;
    ``flash_decode`` (GQA rep 4, MQA, per-sequence lengths, valid_len 1 and
    0, a cache length off the split grid) and ``flash_attention`` (causal,
-   non-causal, a window, a ragged Sq) in float32 and bfloat16;
+   non-causal, a window, a ragged Sq) in float32 and bfloat16; ``ssd_scan``
+   (the reference's three test shapes, two groups included, and the
+   mamba2-2.7b forward shape) in float32 and bfloat16, y and final state;
 4. the fleet screen: ``FleetDetect(n_workers=16384)`` on the ``cuda``
    backend for 200 ticks, flags identical to the numpy ``batched`` backend;
 5. the pipeline (slice 1's main path): ``ControlPlane.tick`` over a
@@ -38,7 +40,22 @@ order:
 9. parity at the published width, kernel route against plain route:
    teacher-forced decode on the same caches and the 4,096-token forward;
    bf16 differences reported, float32 (weights upcast exactly) held to a
-   tolerance.
+   tolerance. granite-3-8b's tensors are released after it;
+10. the mamba2-2.7b forward (slice 3's forward path) at its published width
+    over 4,096 tokens: ``ssd_scan`` launched once per layer (64), the
+    kernel route against the plain chunked SSD, bf16 reported, float32 held
+    to a tolerance;
+11. mamba2-2.7b serving: ``serve`` with 4 requests x (512 prompt + 32
+    generated) and ``gpu:1:0.5:1:200``: the FALCON onset of the CPU latency
+    loop, and in float32 the teacher-forced decode logits (prefill and the
+    recurrence) equal to the kernel forward's at the same positions;
+12. training (slice 3's train path): ``FalconTrainer`` on mamba2-2.7b at
+    its published width, 30 steps of 2 micro-batches of 4 x 512 tokens, the
+    simulator of ``launch/train.py`` with ``gpu:1:0.9:0.5:200`` injected:
+    finite losses, the control-plane event log identical to a CPU replay of
+    the same simulator, injector and observe loop without the model, with a
+    diagnosis and a mitigation in it; seconds per step and peak memory;
+13. the SSD scan's times at the forward shape (as phase 8).
 
 Any failure exits non-zero. The last two lines are a JSON object with one
 entry per kernel and ``{"ok": true, "device": {...}}``. The script imports
@@ -81,6 +98,20 @@ SERVE_EVENT = (36, "gpu_degradation", ["gpu:1"])
 FORWARD_LEN = 4096
 TEACHER_STEPS = 8
 
+# Slice 3's paths: mamba2-2.7b at its published width (64 layers, d_model
+# 2560, 80 heads of 64, state 128, chunk 128). Serving 4 requests x (512 +
+# 32) with a fail-slow that fires inside 32 tokens (the modeled time per
+# token is ~0.057 s); training 2 micro-batches of 4 x 512 tokens per step
+# with a GPU_SLOW that FALCON diagnoses at step 12 and mitigates at steps
+# 12 (S1) and 18 (S2) on the CPU replay.
+MAMBA_ARCH = "mamba2-2.7b"
+MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = 4, 512, 32
+MAMBA_INJECT = "gpu:1:0.5:1:200"
+MAMBA_EVENT = (19, "gpu_degradation", ["gpu:1"])
+TRAIN_DATA = dict(seq_len=512, global_batch=8, slots=2, dp_groups=2)
+TRAIN_INJECT = "gpu:1:0.9:0.5:200"
+TRAIN_STEPS = 30
+
 # Tolerances of the attention kernels against their plain versions: the
 # reference's (tests/test_kernels.py:17). float32: summation order only;
 # bfloat16: both accumulate in float32 and round the result once to bf16.
@@ -94,6 +125,13 @@ ATT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 # tolerance. The same growth (~x15 relative) of the float32 differences
 # gives ~1e-4; the tolerance leaves ten times that.
 PARITY_TOL = (1e-3, 1e-3)  # (rtol, atol), float32
+# The SSD scan against its plain version (the sequential recurrence): the
+# reference's tolerances (tests/test_kernels.py:98). The mamba2-2.7b logits,
+# kernel route vs the plain chunked SSD, are held in float32 to PARITY_TOL
+# by the same reckoning: the two scans differ in summation order (~1e-6
+# relative per layer; the plain route rounds its scores and chunk states
+# only to the activation type, float32 here), grown through 64 layers.
+SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 3e-2)}  # (rtol, atol)
 
 
 class SmokeError(RuntimeError):
@@ -125,7 +163,7 @@ def phase_env(torch) -> str:
 
 
 # ------------------------------------------------------------------ phase 2
-KERNELS = ("bocd_step", "cell_reduce", "flash_decode", "flash_attention")
+KERNELS = ("bocd_step", "cell_reduce", "flash_decode", "flash_attention", "ssd_scan")
 
 
 def phase_build() -> None:
@@ -269,10 +307,10 @@ def phase_kernels(torch, np):
     return errs
 
 
-def _att_err(torch, name, got, want, dt_name):
-    """Max abs error of an attention kernel against its plain version under
-    ``ATT_TOL``; the output must be finite."""
-    rtol, atol = ATT_TOL[dt_name]
+def _att_err(torch, name, got, want, dt_name, tol=ATT_TOL):
+    """Max abs error of a model kernel against its plain version under
+    ``tol`` (``ATT_TOL`` by default); the output must be finite."""
+    rtol, atol = tol[dt_name]
     g, w = got.double(), want.double()
     need(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
     need(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
@@ -546,26 +584,29 @@ def _zero_launches():
     from repro_torch.kernels.cell_reduce import cell_reduce
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     wrappers = {"bocd_step": bocd_step, "cell_reduce": cell_reduce,
-                "flash_decode": flash_decode, "flash_attention": flash_attention}
+                "flash_decode": flash_decode, "flash_attention": flash_attention,
+                "ssd_scan": ssd_scan}
     for w in wrappers.values():
         w.launches = 0
     return lambda: {n: w.launches for n, w in wrappers.items()}
 
 
-def _falcon_reference(cfg):
+def _falcon_reference(cfg, total=SERVE_PROMPT + SERVE_GEN, gen=SERVE_GEN,
+                      inject=SERVE_INJECT):
     """The serve driver's latency loop on the CPU without the model: the
     port's simulator, injector and detector, as ``serve`` runs them."""
     from repro_torch.cluster.injector import FailSlowInjector
     from repro_torch.core.detector import FalconDetect
     from repro_torch.launch.serve import VERIFY_WINDOW, parse_injection, serve_simulator
 
-    sim = serve_simulator(cfg, SERVE_PROMPT + SERVE_GEN, device="cpu")
-    injector = FailSlowInjector([parse_injection(SERVE_INJECT)])
+    sim = serve_simulator(cfg, total, device="cpu")
+    injector = FailSlowInjector([parse_injection(inject)])
     detector = FalconDetect(cluster=sim, verify_window=VERIFY_WINDOW)
     wall, events = 0.0, []
-    for step in range(SERVE_GEN):
+    for step in range(gen):
         injector.apply(sim.state, wall)
         latency = sim.iteration_time()
         wall += latency
@@ -770,11 +811,11 @@ def _as_float(torch, tree):
 
 
 # ------------------------------------------------------------------ phase 8
-def _device_ms(torch, fn, runs=100, chunk=10):
+def _device_ms(torch, fn, runs=100, chunk=10, warmup=5):
     """Median device time of ``fn()`` over ``runs`` calls. Each chunk of
     calls is queued behind a sleeping kernel long enough to cover the host's
     enqueue time, so each event pair brackets device work only."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -961,6 +1002,312 @@ def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
     return out
 
 
+# ------------------------------------------------------- phases 10 to 13
+SSD_CASES = (   # label, B, S, H, P, G, N, chunk
+    ("16-step chunks, N 16", 1, 64, 2, 32, 1, 16, 16),
+    ("two groups", 2, 128, 4, 64, 2, 32, 32),
+    ("three chunks, P 16", 1, 96, 2, 16, 1, 8, 32),
+    ("the forward shape", 1, FORWARD_LEN, 80, 64, 1, 128, 128),
+)
+
+
+def _ssd_inputs(torch, seed, shape, dtype):
+    """x, dt, a, B, C as the reference's kernel tests make them: dt =
+    softplus(normal) / 2 and a = -exp(normal / 5) in float32, the rest in
+    ``dtype``."""
+    b, s, h, p, g, n = shape
+    x = _normal(torch, seed, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_normal(torch, seed + 1, (b, s, h), torch.float32)) * 0.5
+    a = -torch.exp(_normal(torch, seed + 2, (h,), torch.float32) * 0.2)
+    bm = _normal(torch, seed + 3, (b, s, g, n), dtype)
+    cm = _normal(torch, seed + 4, (b, s, g, n), dtype)
+    return x, dt, a, bm, cm
+
+
+def phase_ssd_kernel(torch):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+
+    errs = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        worst, parts = 0.0, []
+        for i, (label, b, s, h, p, g, n, chunk) in enumerate(SSD_CASES):
+            ins = _ssd_inputs(torch, 70 + 5 * i, (b, s, h, p, g, n), dt)
+            y, st = ssd_scan(*ins, chunk=chunk)
+            y_r, st_r = ssd_scan_reference(*ins)
+            torch.cuda.synchronize()
+            e = max(_att_err(torch, f"ssd_scan {dt_name} {label} y", y, y_r, dt_name, SSD_TOL),
+                    _att_err(torch, f"ssd_scan {dt_name} {label} final state", st, st_r,
+                             dt_name, SSD_TOL))
+            worst = max(worst, e)
+            parts.append(f"{label} {e:.2e}")
+            del ins, y, st, y_r, st_r
+        errs[("ssd_scan", dt_name)] = worst
+        log(f"[3 kernels] ssd_scan {dt_name}: max abs err vs plain (y and final state) "
+            + "; ".join(parts))
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_mamba_forward(torch, np, card):
+    """Slice 3's forward path: ``model.forward(use_kernel=True)`` of
+    mamba2-2.7b at its published width over FORWARD_LEN tokens; launches
+    zeroed just before the kernel route and read just after. The plain
+    chunked route is compared in bf16 (reported) and float32 (held to
+    PARITY_TOL). Returns the config, the bf16 and float32 weights and the
+    launches."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(MAMBA_ARCH)   # the published width
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, FORWARD_LEN)),
+                             device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        read = _zero_launches()
+        t0 = time.perf_counter()
+        got, _ = model_lib.forward(params, {"tokens": tokens}, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        launches = read()
+        t0 = time.perf_counter()
+        want, _ = model_lib.forward(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    need(launches["ssd_scan"] == cfg.num_layers,
+         f"ssd_scan launched {launches['ssd_scan']} times, expected {cfg.num_layers}")
+    worst, _, rel, agree = _logit_diff(torch, got, want, cfg.vocab_size)
+    del got, want
+    log(f"[10 mamba forward] {cfg.name} published width ({n_params / 1e9:.3f} B "
+        f"parameters, bf16, init {init_s:.2f} s), forward over (1, {FORWARD_LEN}) tokens, "
+        f"use_kernel: launches {launches}; vs the plain chunked SSD in bf16: max abs logit "
+        f"diff {worst:.3e}, relative L2 {rel:.3e}, argmax agrees {agree:.4%}; {kern_s:.3f} s "
+        f"kernel route, {plain_s:.3f} s plain route (host clock); card: {card}")
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = _as_float(torch, params)
+    with torch.no_grad():
+        got, _ = model_lib.forward(params32, {"tokens": tokens}, cfg32, use_kernel=True)
+        want, _ = model_lib.forward(params32, {"tokens": tokens}, cfg32)
+        f_worst, bad, f_rel, f_agree = _logit_diff(torch, got, want, cfg.vocab_size)
+        del got, want
+    log(f"[10 mamba forward] float32 (weights upcast exactly), kernel vs plain chunked "
+        f"route: max abs logit diff {f_worst:.3e}, {bad} entries outside rtol/atol "
+        f"{PARITY_TOL[0]}/{PARITY_TOL[1]}, relative L2 {f_rel:.3e}, argmax agrees "
+        f"{f_agree:.4%}; card: {card}")
+    need(bad == 0, f"mamba float32 forward: {bad} logits outside tolerance")
+    torch.cuda.empty_cache()
+    return cfg, params, params32, launches
+
+
+def phase_mamba_serve(torch, np, card, cfg, params, params32):
+    """mamba2-2.7b through the serve driver (prefill by the plain chunked
+    SSD, decode by the recurrence, as in the reference): the FALCON onset
+    of the CPU latency loop; then, in float32, teacher-forced decode logits
+    of the generated tokens against the kernel forward's at the same
+    positions of the same sequence."""
+    from dataclasses import replace
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    total = MAMBA_PROMPT + MAMBA_GEN
+    ref_events = _falcon_reference(cfg, total, MAMBA_GEN, MAMBA_INJECT)
+    need([e[:3] for e in ref_events] == [MAMBA_EVENT],
+         f"the CPU latency loop flags {[e[:3] for e in ref_events]}, expected "
+         f"{[MAMBA_EVENT]}")
+    rng = np.random.default_rng(3)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (MAMBA_B, MAMBA_PROMPT)),
+                             device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _zero_launches()
+    res = serve(cfg, params, prompt, gen=MAMBA_GEN, use_kernel=True,
+                inject=[MAMBA_INJECT], device="cuda")
+    torch.cuda.synchronize()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    need(bool(torch.isfinite(res.logits.float()).all()), "mamba serve: non-finite logits")
+    need(res.tokens.shape == (MAMBA_B, MAMBA_GEN), f"mamba serve: tokens {res.tokens.shape}")
+    need(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < cfg.vocab_size,
+         "mamba serve: a token in the padded vocab")
+    got = [(step, ev.root_cause.value, list(ev.components), ev.t_healthy, ev.t_slow)
+           for step, ev in res.events]
+    need(got == ref_events, f"mamba serve flags {got}, the CPU loop {ref_events}")
+    decode_s = sum(res.step_s)
+    log(f"[11 mamba serve] {cfg.name} published width, {MAMBA_B} requests x "
+        f"({MAMBA_PROMPT} prompt + {MAMBA_GEN} generated), inject {MAMBA_INJECT}: launches "
+        f"{launches}; FALCON flags {got[0][1]} on {got[0][2]} at token {got[0][0]} "
+        f"({got[0][3]:.4f} s -> {got[0][4]:.4f} s), the same as the CPU latency loop; "
+        f"prefill {res.prefill_s:.4f} s; decode {MAMBA_B * MAMBA_GEN / decode_s:.1f} "
+        f"tokens/s on the host clock ({decode_s / MAMBA_GEN * 1e3:.3f} ms per step, "
+        f"median {statistics.median(res.step_s) * 1e3:.3f} ms); peak memory "
+        f"{peak / 2**30:.2f} GiB; card: {card}")
+
+    # The same sequence in float32: prompt, the generated tokens, and filler
+    # up to a multiple of the chunk (causal: it changes no earlier logit).
+    cfg32 = replace(cfg, dtype="float32")
+    length = -(-total // cfg.ssm_chunk) * cfg.ssm_chunk
+    filler = rng.integers(0, cfg.vocab_size, (MAMBA_B, length - total))
+    seq = torch.cat([prompt, torch.as_tensor(res.tokens, device="cuda"),
+                     torch.as_tensor(filler, device="cuda")], dim=1)
+    with torch.no_grad():
+        full, _ = model_lib.forward(params32, {"tokens": seq}, cfg32, use_kernel=True)
+        logits, caches = make_prefill_step(cfg32, MAMBA_PROMPT)(
+            params32, {"tokens": seq[:, :MAMBA_PROMPT]})
+        diffs = [_logit_diff(torch, logits[:, 0], full[:, MAMBA_PROMPT - 1], cfg.vocab_size)]
+        caches = transformer.grow_caches(caches, cfg32, total)
+        decode = make_decode_step(cfg32, total)
+        for t in range(MAMBA_GEN):
+            pos = MAMBA_PROMPT + t
+            out, caches = decode(params32, seq[:, pos:pos + 1], caches, pos)
+            diffs.append(_logit_diff(torch, out[:, 0], full[:, pos], cfg.vocab_size))
+        del full, caches
+    worst, bad, rel, agree = _summary(diffs)
+    log(f"[11 mamba serve] float32 prefill + {MAMBA_GEN} teacher-forced decode steps "
+        f"(the recurrence) vs the kernel forward at the same {MAMBA_GEN + 1} positions of "
+        f"the same sequence: max abs logit diff {worst:.3e}, {bad} entries outside "
+        f"rtol/atol {PARITY_TOL[0]}/{PARITY_TOL[1]}, relative L2 {rel:.3e}, argmax agrees "
+        f"{agree:.4%}; card: {card}")
+    need(bad == 0, f"mamba float32 decode vs kernel forward: {bad} logits outside tolerance")
+    torch.cuda.empty_cache()
+
+
+def _train_replay(cfg, data, steps):
+    """The trainer's control loop on the CPU without the model: the
+    simulator, injector and ``observe`` loop of ``FalconTrainer.run``.
+    Returns the control plane's event log records."""
+    from repro_torch.cluster.injector import FailSlowInjector
+    from repro_torch.controlplane import ControlPlane, MitigationResult, event_log_records
+    from repro_torch.core.detector import FalconDetect
+    from repro_torch.core.planner import DEFAULT_OVERHEADS
+    from repro_torch.launch.train import parse_injection, train_simulator
+
+    sim = train_simulator(cfg, data, device="cpu")
+    injector = FailSlowInjector([parse_injection(TRAIN_INJECT)])
+    plane = ControlPlane(fleet_kwargs={"device": "cpu"})
+    plane.register_job("train", sim,
+                       detector=FalconDetect(cluster=sim, verify_window=8, device="cpu"),
+                       overheads=dict(DEFAULT_OVERHEADS), injector=injector)
+    wall = 0.0
+    for _ in range(steps):
+        injector.apply(sim.state, wall)
+        it = sim.iteration_time()
+        wall += it
+        for ev in plane.observe("train", it, wall):
+            if isinstance(ev, MitigationResult) and ev.kind != "relief":
+                wall += ev.overhead
+    return event_log_records(plane.events)
+
+
+def phase_train(torch, np, card):
+    """Slice 3's train path: ``FalconTrainer`` on mamba2-2.7b at its
+    published width on the card (the plain chunked SSD, as the reference
+    trains), the control-plane event log held to the CPU replay."""
+    from repro_torch.cluster.injector import FailSlowInjector
+    from repro_torch.configs.base import get_config
+    from repro_torch.controlplane import event_log_records
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import parse_injection, train_simulator
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import FalconTrainer
+
+    cfg = get_config(MAMBA_ARCH)
+    data = DataConfig(**TRAIN_DATA)
+    want = _train_replay(cfg, data, TRAIN_STEPS)
+    kinds = [r["type"] for r in want]
+    need("Diagnosis" in kinds and "MitigationResult" in kinds,
+         f"the CPU replay raised no diagnosis/mitigation (kinds {kinds})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = FalconTrainer(
+        cfg=cfg, data=data, opt_cfg=AdamWConfig(total_steps=TRAIN_STEPS),
+        perf_model=train_simulator(cfg, data, device="cuda"),
+        injector=FailSlowInjector([parse_injection(TRAIN_INJECT)]),
+    )
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    need(trainer.params["embed"]["tok"].is_cuda, "the trainer's parameters are not on the card")
+    read = _zero_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r.loss for r in hist]
+    need(all(np.isfinite(losses)), f"non-finite training losses: {losses}")
+    got = event_log_records(trainer.control.events)
+    if json.dumps(got, sort_keys=True) != json.dumps(want, sort_keys=True):
+        raise SmokeError(f"train event log differs from the CPU replay: {got} vs {want}")
+    applied = [(r.step, r.strategy) for r in hist if r.strategy]
+    secs = trainer.step_seconds
+    tokens = data.global_batch * data.seq_len
+    later = statistics.median(secs[1:])
+    log(f"[12 train] FalconTrainer {cfg.name} published width, {TRAIN_STEPS} steps of "
+        f"{data.slots} micro-batches x ({data.global_batch // data.slots} x {data.seq_len}) "
+        f"tokens, inject {TRAIN_INJECT}: event log identical to the CPU replay "
+        f"({len(want)} records: {kinds}); strategies applied {applied}; launches {launches}; "
+        f"card: {card}")
+    log(f"[12 train] loss curve {[round(x, 4) for x in losses]}")
+    log(f"[12 train] init {init_s:.2f} s; {run_s:.2f} s for {TRAIN_STEPS} steps; per step "
+        f"(host clock, synchronised) first {secs[0]:.3f} s, median of the rest "
+        f"{later:.4f} s ({tokens / later:.0f} tokens/s), max {max(secs[1:]):.3f} s; peak "
+        f"memory {peak / 2**30:.2f} GiB; card: {card}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_times_ssd(torch, card, errs, forward_launches):
+    """``ssd_scan`` at the mamba2-2.7b forward shape in bf16 (dt in bf16,
+    as the model passes it), its plain version (the sequential recurrence)
+    and the model's plain chunked route, beside the bound."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_reference
+    from repro_torch.models.ssm import ssd_scan as chunked
+
+    saved = ssd_scan.launches
+    b, s, h, p, g, n, q = 1, FORWARD_LEN, 80, 64, 1, 128, 128
+    bf = torch.bfloat16
+    x, dt, a, bm, cm = _ssd_inputs(torch, 99, (b, s, h, p, g, n), bf)
+    dt = dt.to(bf)
+    ms, call_ms = _device_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=q))
+    plain_ms, plain_call = _device_ms(torch, lambda: ssd_scan_reference(x, dt, a, bm, cm),
+                                      runs=3, chunk=1, warmup=1)
+    chunked_ms, _ = _device_ms(torch, lambda: chunked(x, dt, a, bm, cm, q), runs=10,
+                               chunk=2, warmup=2)
+    ssd_scan.launches = saved
+    # Each input read once, each output written once: x and y, dt (bf16),
+    # a (float32), B and C, the final state.
+    nbytes = 2 * (2 * b * s * h * p + b * s * h + 2 * b * s * g * n + b * h * p * n) + 4 * h
+    # What the function needs per (head, chunk): C Bᵀ and the masked product
+    # with x over the lower triangle only, C S_prev and the state update.
+    nc, tri = s // q, q * (q + 1) // 2
+    flops = b * h * nc * (2 * tri * n + 2 * tri * p + 2 * q * n * p + 2 * q * n * p)
+    row = _row("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:82", forward_launches["ssd_scan"],
+               errs[("ssd_scan", "bfloat16")], ms, plain_ms, nbytes, flops,
+               BF16_FLOP_PER_S, None)
+    log(f"[13 times] ssd_scan bf16 B={b} S={s} H={h} P={p} G={g} N={n} chunk={q}: kernel "
+        f"{ms:.4f} ms (device, median of >=100; per call with host {call_ms:.4f} ms), plain "
+        f"sequential recurrence {plain_ms:.4f} ms (median of 3; per call with host "
+        f"{plain_call:.4f} ms), plain chunked route {chunked_ms:.4f} ms, library none; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+        f"{flops / 1e9:.2f} GFLOP); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; card: {card}")
+    del x, dt, a, bm, cm
+    return row
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -987,6 +1334,7 @@ def main() -> int:
         phase_build()
         errs = phase_kernels(torch, np)
         errs.update(phase_attention_kernels(torch))
+        errs.update(phase_ssd_kernel(torch))
         launches = phase_main_path(torch, np, card, phase_references(np))
         cfg, params, prompt, serve_launches = phase_serve(torch, np, card)
         forward_launches, tokens = phase_forward(torch, np, card, cfg, params)
@@ -994,7 +1342,14 @@ def main() -> int:
         rows += phase_times_attention(torch, card, errs, serve_launches,
                                       forward_launches)
         phase_parity(torch, card, cfg, params, prompt, tokens)
-        del params
+        del params, prompt, tokens   # granite-3-8b's tensors
+        torch.cuda.empty_cache()
+        mcfg, mparams, mparams32, mamba_launches = phase_mamba_forward(torch, np, card)
+        phase_mamba_serve(torch, np, card, mcfg, mparams, mparams32)
+        del mparams, mparams32
+        torch.cuda.empty_cache()
+        rows.append(phase_times_ssd(torch, card, errs, mamba_launches))
+        phase_train(torch, np, card)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
         need(not leaked, f"modules of jax or the JAX package were loaded: {leaked[:5]}")

@@ -11,6 +11,9 @@ over mid-stream and the tests can hold both packages to the same state:
   ``FleetDetect.restore`` under a chosen screening backend.
 * :func:`params_from_numpy` — a model parameter tree (nested dicts of
   arrays, as ``repro.models.model.init_params`` makes them) as tensors.
+* :func:`opt_state_from_numpy` — an AdamW state (``step``, ``mu``, ``nu``,
+  as ``repro.optim.adamw.AdamWState`` holds them) as the port's
+  :class:`~repro_torch.optim.adamw.AdamWState`.
 """
 from __future__ import annotations
 
@@ -141,3 +144,17 @@ def params_from_numpy(tree: Mapping, device, dtype=None) -> dict:
         else _tensor_from_array(sub, device, dtype)
         for name, sub in tree.items()
     }
+
+
+def opt_state_from_numpy(state, device):
+    """A reference ``AdamWState`` (or any object with ``step``, ``mu`` and
+    ``nu``: a 0-d step and two trees of float32 arrays) as the port's
+    :class:`~repro_torch.optim.adamw.AdamWState` on ``device``: the step
+    as an int32 scalar, the moments float32, bit for bit."""
+    from repro_torch.optim.adamw import AdamWState
+
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device),
+        mu=params_from_numpy(state.mu, device, torch.float32),
+        nu=params_from_numpy(state.nu, device, torch.float32),
+    )

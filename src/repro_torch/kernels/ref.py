@@ -1,8 +1,7 @@
-"""Plain PyTorch oracles for the attention kernels — the twins of
-``attention_ref`` and ``decode_attention_ref`` in :mod:`repro.kernels.ref`
-(naive, obviously correct: the full score matrix is materialized).
-
-The SSD oracle (``ssd_ref``) comes with the training slice of the port.
+"""Plain PyTorch oracles of the model kernels — the twins of
+``attention_ref``, ``decode_attention_ref`` and ``ssd_ref`` in
+:mod:`repro.kernels.ref` (naive, obviously correct: the full score matrix
+is materialized; the state-space recurrence runs one step at a time).
 """
 from __future__ import annotations
 
@@ -70,3 +69,36 @@ def decode_attention_ref(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", p, vf)
     return out.to(q.dtype)
+
+
+def ssd_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    a: torch.Tensor,  # (H,) negative
+    b_mat: torch.Tensor,  # (B, S, G, N)
+    c_mat: torch.Tensor,  # (B, S, G, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential state-space recurrence (the definitionally-correct form):
+
+        S_t = exp(dt_t * a) * S_{t-1} + dt_t * x_t b_tᵀ
+        y_t = C_t · S_t
+
+    in float32; returns (y (B,S,H,P), final state (B,H,P,N)) in x's type."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = h // g
+    bh = torch.repeat_interleave(b_mat, rep, dim=2).float()  # (B,S,H,N)
+    ch = torch.repeat_interleave(c_mat, rep, dim=2).float()
+    xf = x.float()
+    dtf = dt.float()
+    af = a.float()
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af)  # (B,H)
+        state = state * decay[..., None, None] + torch.einsum(
+            "bh,bhp,bhn->bhpn", dtf[:, t], xf[:, t], bh[:, t]
+        )
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], state))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, h, p))
+    return y.to(x.dtype), state.to(x.dtype)

@@ -31,41 +31,19 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.cluster.injector import FailSlowInjector, Injection, InjectionKind
+from repro_torch.cluster.injector import FailSlowInjector
 from repro_torch.cluster.simulator import JobSpec, TrainingSimulator
 from repro_torch.cluster.spec import ClusterSpec, ModelSpec
 from repro_torch.configs.base import ArchConfig, get_config
 from repro_torch.core.detector import FalconDetect
 from repro_torch.core.events import FailSlowEvent
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import parse_injection
 from repro_torch.models import layers, model as model_lib, transformer
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
 #: FalconDetect's verification window on the per-token latency stream
 VERIFY_WINDOW = 6
-
-KIND = {
-    "gpu": InjectionKind.GPU_SLOW,
-    "cpu": InjectionKind.CPU_CONTENTION,
-    "link": InjectionKind.LINK_CONGESTION,
-    "nic": InjectionKind.NIC_CONGESTION,
-}
-
-
-def parse_injection(text: str) -> Injection:
-    """``kind:target:severity:start:duration`` (the reference's
-    ``repro.launch.train.parse_injection``); a target of several ids is
-    written ``a-b``."""
-    kind, target, severity, start, duration = text.split(":")
-    tgt = tuple(int(x) for x in target.split("-"))
-    return Injection(
-        start=float(start),
-        duration=float(duration),
-        kind=KIND[kind],
-        target=tgt,
-        severity=float(severity),
-    )
-
 
 def serve_simulator(cfg: ArchConfig, total: int, device=None) -> TrainingSimulator:
     """The performance model behind the latency signal: one node of 8 GPUs,

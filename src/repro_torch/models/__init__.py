@@ -1,2 +1,2 @@
 """Model layers of the port (the twin of :mod:`repro.models`): dense
-attention stacks; ``ssm`` and ``moe`` come with the training slice."""
+attention and Mamba2 stacks; ``moe`` is still to port."""

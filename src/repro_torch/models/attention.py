@@ -105,9 +105,9 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig):
     b, s, _ = x.shape
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     hn = layers.rmsnorm(x, params["norm"], cfg.norm_eps)
-    q = (hn @ params["wq"]).reshape(b, s, h, hd)
-    k = (hn @ params["wk"]).reshape(b, s, kv, hd)
-    v = (hn @ params["wv"]).reshape(b, s, kv, hd)
+    q = layers.matmul(hn, params["wq"]).reshape(b, s, h, hd)
+    k = layers.matmul(hn, params["wk"]).reshape(b, s, kv, hd)
+    v = layers.matmul(hn, params["wv"]).reshape(b, s, kv, hd)
     return q, k, v
 
 
@@ -128,7 +128,7 @@ def apply_attention(
         out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         out = blocked_attention(q, k, v, causal=True, window=window)
-    return out.reshape(b, s, -1) @ params["wo"]
+    return layers.matmul(out.reshape(b, s, -1), params["wo"])
 
 
 # ----------------------------------------------------------------- decode
@@ -216,4 +216,4 @@ def decode_attention(
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bgrk,bkgd->bgrd", p, v_att.float())
     out = out.reshape(b, 1, h * hd).to(x.dtype)
-    return out @ params["wo"], {"k": k_cache, "v": v_cache}
+    return layers.matmul(out, params["wo"]), {"k": k_cache, "v": v_cache}

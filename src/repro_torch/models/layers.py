@@ -3,15 +3,34 @@ MLP, RoPE / M-RoPE, embeddings and the LM head with its padded-vocab mask.
 
 Each function does the reference's arithmetic in the reference's types
 (statistics and rotations in float32, results cast back to the input's
-type), on tensors on any device.
+type), on tensors on any device. Products of mixed types promote as JAX
+does (bfloat16 weights against float32 activations compute in float32):
+see :func:`matmul`.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.schema import ParamDef, Schema
+
+
+# ------------------------------------------------------------ promotion
+def promote(*tensors: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The tensors in their common type, as JAX promotes the operands of a
+    product (bfloat16 with float32 gives float32); no copy where the types
+    agree. PyTorch's matrix products refuse mixed types."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return tuple(t.to(dt) for t in tensors)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the operands' common type."""
+    x, w = promote(x, w)
+    return x @ w
 
 
 # --------------------------------------------------------------- RMSNorm
@@ -38,9 +57,9 @@ def mlp_schema(cfg: ArchConfig, d_ff: int | None = None) -> Schema:
 
 def apply_mlp(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = rmsnorm(x, params["norm"], cfg.norm_eps)
-    gate = h @ params["wi_gate"]
-    up = h @ params["wi_up"]
-    return (F.silu(gate) * up) @ params["wo"]
+    gate = matmul(h, params["wi_gate"])
+    up = matmul(h, params["wi_up"])
+    return matmul(F.silu(gate) * up, params["wo"])
 
 
 # ------------------------------------------------------------- RoPE(s)
@@ -119,9 +138,9 @@ def apply_head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     never select them; the width stays ``padded_vocab`` as in the reference.
     """
     if cfg.modality == "audio_codes":
-        logits = torch.einsum("bsd,kdv->bskv", x, params["w"])
+        logits = torch.einsum("bsd,kdv->bskv", *promote(x, params["w"]))
     else:
-        logits = x @ params["w"]
+        logits = matmul(x, params["w"])
     vp = cfg.padded_vocab
     if vp != cfg.vocab_size:
         mask = torch.arange(vp, device=logits.device) < cfg.vocab_size

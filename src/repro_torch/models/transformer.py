@@ -6,22 +6,24 @@ leading period axis, the reference's layout. Where the reference runs a
 ``lax.scan`` over periods, the port runs a Python loop over views
 ``blocks[...][i]``.
 
-Sub-layers ``mamba`` and ``moe`` are not ported yet: they raise
-:class:`NotImplementedError` (:data:`NOT_PORTED`).
+Mixers are attention and Mamba2 (:mod:`repro_torch.models.ssm`). The
+``moe`` MLP is not ported yet: it raises :class:`NotImplementedError`
+(:data:`NOT_PORTED`).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, SubLayer
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.schema import Schema, stack
 
-#: what a mamba or moe sub-layer raises until the training slice ports them
+#: what a moe sub-layer raises until models/moe.py is ported
 NOT_PORTED = (
-    "{kind} sub-layers are not ported yet: models/ssm.py and models/moe.py "
-    "come with the training slice (ROADMAP.md, Queue 1, slice 3)"
+    "{kind} sub-layers are not ported yet: models/moe.py is in ROADMAP.md, "
+    "Queue 1, modules still missing"
 )
 
 
@@ -30,7 +32,7 @@ def not_ported(kind: str) -> NotImplementedError:
 
 
 def _check_sublayer(sub: SubLayer) -> None:
-    if sub.mixer != "attn":
+    if sub.mixer not in ("attn", "mamba"):
         raise not_ported(sub.mixer)
     if sub.mlp not in ("mlp", None):
         raise not_ported(sub.mlp)
@@ -40,7 +42,11 @@ def period_schema(cfg: ArchConfig) -> Schema:
     out: Schema = {}
     for j, sub in enumerate(cfg.period):
         _check_sublayer(sub)
-        entry: Schema = {"attn": attention.attn_schema(cfg)}
+        entry: Schema = {}
+        if sub.mixer == "attn":
+            entry["attn"] = attention.attn_schema(cfg)
+        else:
+            entry["mamba"] = ssm.mamba_schema(cfg)
         if sub.mlp == "mlp":
             entry["mlp"] = layers.mlp_schema(cfg)
         out[f"sub{j}"] = entry
@@ -71,9 +77,12 @@ def _apply_sublayer(
     """Residual sub-layer application. Returns (x, aux_loss)."""
     _check_sublayer(sub)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + attention.apply_attention(
-        p["attn"], x, cfg, positions, window=window, use_kernel=use_kernel
-    )
+    if sub.mixer == "attn":
+        x = x + attention.apply_attention(
+            p["attn"], x, cfg, positions, window=window, use_kernel=use_kernel
+        )
+    else:
+        x = x + ssm.apply_mamba(p["mamba"], x, cfg, use_kernel=use_kernel)
     if sub.mlp == "mlp":
         x = x + layers.apply_mlp(p["mlp"], x, cfg)
     return x, aux
@@ -91,18 +100,31 @@ def apply_blocks(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the full stack. Returns (hidden (B,S,D), total aux loss).
 
-    ``remat`` is accepted and ignored: it selects the reference's
-    ``jax.checkpoint`` policy, a training concern; this slice of the port
-    runs the stack without autograd (callers hold ``torch.no_grad``)."""
-    del remat
+    With ``remat`` and autograd recording, each period runs under
+    :func:`torch.utils.checkpoint.checkpoint`: only its input is kept, and
+    the backward pass recomputes its activations (the reference's
+    ``jax.checkpoint`` keeps the matrix products' outputs too; a full
+    recompute gives the same numbers). Without autograd it changes
+    nothing."""
+
+    def period_body(h, aux_sum, period):
+        for j, sub in enumerate(cfg.period):
+            h, aux = _apply_sublayer(
+                h, period[f"sub{j}"], sub, cfg, positions, window, use_kernel
+            )
+            aux_sum = aux_sum + aux
+        return h, aux_sum
+
+    recompute = remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_periods):
         period = period_view(blocks, i)
-        for j, sub in enumerate(cfg.period):
-            x, aux = _apply_sublayer(
-                x, period[f"sub{j}"], sub, cfg, positions, window, use_kernel
+        if recompute:
+            x, aux_total = checkpoint(
+                period_body, x, aux_total, period, use_reentrant=False
             )
-            aux_total = aux_total + aux
+        else:
+            x, aux_total = period_body(x, aux_total, period)
     return x, aux_total
 
 
@@ -112,16 +134,20 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     out: dict = {}
     for j, sub in enumerate(cfg.period):
         _check_sublayer(sub)
+        if sub.mixer == "attn":
+            leaves = attention.kv_cache_shape(cfg, batch, max_len)
+        else:
+            leaves = ssm.ssm_cache_shape(cfg, batch)
         out[f"sub{j}"] = {
-            name: ((cfg.n_periods, *shape), dt)
-            for name, (shape, dt) in attention.kv_cache_shape(cfg, batch, max_len).items()
+            name: ((cfg.n_periods, *shape), dt) for name, (shape, dt) in leaves.items()
         }
     return out
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None) -> dict:
-    """Zeroed period-stacked caches (n_periods, B, max_len, KVH, hd) on
-    ``device`` (None = the card, raising when there is none)."""
+    """Zeroed period-stacked caches on ``device`` (None = the card, raising
+    when there is none): attention (n_periods, B, max_len, KVH, hd), SSM
+    state and conv histories (n_periods, B, ...)."""
     dev = resolve_device(device)
     return {
         key: {name: torch.zeros(shape, dtype=dt, device=dev)
@@ -134,12 +160,16 @@ def grow_caches(caches: dict, cfg: ArchConfig, max_len: int) -> dict:
     """Pad prefill-produced KV caches out to the serving context length.
 
     Prefill returns caches sized to the prompt; decode writes into a fixed
-    ``max_len`` buffer indexed by ``pos``."""
+    ``max_len`` buffer indexed by ``pos``. SSM caches are O(1) in context
+    length and pass through unchanged."""
     out: dict = {}
     for j, sub in enumerate(cfg.period):
         _check_sublayer(sub)
         key = f"sub{j}"
         c = caches[key]
+        if sub.mixer != "attn":
+            out[key] = c
+            continue
         pad = max(max_len - c["k"].shape[2], 0)  # (periods, B, S, kv, hd)
         out[key] = {
             name: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
@@ -160,18 +190,24 @@ def decode_blocks(
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode through the stack. Returns (hidden, caches): the
     new K/V rows are written into ``caches`` in place (see
-    :func:`repro_torch.models.attention.decode_attention`), and the same
-    dict is returned."""
+    :func:`repro_torch.models.attention.decode_attention`), the new SSM
+    state and conv histories copied into their period's slots, and the
+    same dict is returned."""
     for i in range(cfg.n_periods):
         period = period_view(blocks, i)
         cache = period_view(caches, i)
         for j, sub in enumerate(cfg.period):
             _check_sublayer(sub)
             key = f"sub{j}"
-            dh, _ = attention.decode_attention(
-                period[key]["attn"], x, cache[key], pos, cfg,
-                window=window, use_kernel=use_kernel,
-            )
+            if sub.mixer == "attn":
+                dh, _ = attention.decode_attention(
+                    period[key]["attn"], x, cache[key], pos, cfg,
+                    window=window, use_kernel=use_kernel,
+                )
+            else:
+                dh, new = ssm.decode_mamba(period[key]["mamba"], x, cache[key], cfg)
+                for name, t in new.items():
+                    cache[key][name].copy_(t)
             x = x + dh
             if sub.mlp == "mlp":
                 x = x + layers.apply_mlp(period[key]["mlp"], x, cfg)

@@ -221,3 +221,122 @@ def test_decode_and_forward_kernel_routes_match_plain_routes(card, arch):
                                                 use_kernel=True)
             _close(got, want, torch.bfloat16)
             tok = torch.argmax(want[:, -1], dim=-1).reshape(2, 1)
+
+
+# The SSD scan against its plain version (the sequential recurrence), both
+# on the card, with the reference's tolerances (tests/test_kernels.py:98):
+# float32 differs in summation order, bfloat16 also in where y is rounded.
+SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
+           torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+SSD_CASES = [   # b, s, h, p, g, n, chunk
+    (1, 64, 2, 32, 1, 16, 16),
+    (2, 128, 4, 64, 2, 32, 32),      # two groups
+    (1, 96, 2, 16, 1, 8, 32),        # three chunks, P below a block's 32
+    (1, 4096, 80, 64, 1, 128, 128),  # mamba2-2.7b's forward shape
+]
+
+
+def _ssd_inputs(card, shape, dtype, seed=20):
+    b, s, h, p, g, n, _ = shape
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(b, s, h, p)), dtype=torch.float32, device=card)
+    dt = torch.nn.functional.softplus(torch.as_tensor(
+        rng.normal(size=(b, s, h)), dtype=torch.float32, device=card)) * 0.5
+    a = -torch.exp(torch.as_tensor(rng.normal(size=(h,)), dtype=torch.float32,
+                                   device=card) * 0.2)
+    bm = torch.as_tensor(rng.normal(size=(b, s, g, n)), dtype=torch.float32, device=card)
+    cm = torch.as_tensor(rng.normal(size=(b, s, g, n)), dtype=torch.float32, device=card)
+    return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain_version(card, dtype, shape):
+    from repro_torch.kernels import ssd_scan as sk
+
+    x, dt, a, bm, cm = _ssd_inputs(card, shape, dtype)
+    before = sk.ssd_scan.launches
+    y, st = sk.ssd_scan(x, dt, a, bm, cm, chunk=shape[-1])
+    y_r, st_r = sk.ssd_scan_reference(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    assert sk.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and st.dtype == dtype
+    assert y.shape == x.shape and st.shape == st_r.shape
+    for got, want in ((y, y_r), (st, st_r)):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **SSD_TOL[dtype])
+
+
+def test_ssd_scan_kernel_reads_strided_b_and_c(card):
+    """B and C as the model makes them: two halves of one projection."""
+    from repro_torch.kernels import ssd_scan as sk
+
+    x, dt, a, bm, cm = _ssd_inputs(card, (2, 64, 4, 32, 2, 16, 32), torch.bfloat16, 3)
+    bc = torch.cat([bm, cm], dim=-1)
+    b_view, c_view = torch.split(bc, bm.shape[-1], dim=-1)
+    assert not b_view.is_contiguous()
+    y, st = sk.ssd_scan(x, dt.to(torch.bfloat16), a, b_view, c_view, chunk=32)
+    y_r, st_r = sk.ssd_scan_reference(x, dt.to(torch.bfloat16), a, bm, cm)
+    for got, want in ((y, y_r), (st, st_r)):
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   **SSD_TOL[torch.bfloat16])
+
+
+def test_ssd_scan_raises_under_autograd_and_on_bad_inputs(card):
+    from repro_torch.kernels import ssd_scan as sk
+
+    x, dt, a, bm, cm = _ssd_inputs(card, SSD_CASES[0], torch.float32)
+    before = sk.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        sk.ssd_scan(x.requires_grad_(True), dt, a, bm, cm, chunk=16)
+    x = x.detach()
+    with pytest.raises(ValueError, match="chunk"):
+        sk.ssd_scan(x, dt, a, bm, cm, chunk=24)
+    with pytest.raises(ValueError, match="dtype"):
+        sk.ssd_scan(x, dt, a, bm.double(), cm, chunk=16)
+    with pytest.raises(ValueError, match="is on"):
+        sk.ssd_scan(x, dt, a, bm.cpu(), cm, chunk=16)
+    assert sk.ssd_scan.launches == before
+    with torch.no_grad():
+        sk.ssd_scan(x.requires_grad_(True), dt, a, bm, cm, chunk=16)
+    assert sk.ssd_scan.launches == before + 1
+
+
+def test_mamba2_forward_launches_ssd_scan_once_per_layer(card):
+    """mamba2-2.7b at its published width (64 layers): a forward with
+    ``use_kernel`` launches ``ssd_scan`` 64 times, and its logits follow
+    the plain chunked route's."""
+    from repro_torch.kernels import ssd_scan as sk
+
+    cfg = get_config("mamba2-2.7b")
+    params = model_lib.init_params(cfg, 0, device=card)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 256)),
+                             device=card)
+    with torch.no_grad():
+        before = sk.ssd_scan.launches
+        got, _ = model_lib.forward(params, {"tokens": tokens}, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        assert sk.ssd_scan.launches - before == cfg.num_layers == 64
+        want, _ = model_lib.forward(params, {"tokens": tokens}, cfg)
+    assert bool(torch.isfinite(got.float()).all())
+    real = slice(0, cfg.vocab_size)
+    agree = (got[..., real].argmax(-1) == want[..., real].argmax(-1)).float().mean()
+    assert float(agree) > 0.5
+    del params
+    torch.cuda.empty_cache()
+
+
+def test_mamba2_smoke_kernel_route_matches_plain_route_and_decode(card):
+    cfg = get_config("mamba2-2.7b").smoke()
+    params = model_lib.init_params(cfg, 0, device=card)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 64)),
+                             device=card)
+    with torch.no_grad():
+        want, _ = model_lib.forward(params, {"tokens": tokens}, cfg)
+        got, _ = model_lib.forward(params, {"tokens": tokens}, cfg, use_kernel=True)
+        _close(got, want, torch.bfloat16)
+        caches = transformer.init_caches(cfg, 2, 64, device=card)
+        for pos in range(8):
+            logits, caches = model_lib.decode_step(params, tokens[:, pos:pos + 1], caches,
+                                                   pos, cfg)
+            assert bool(torch.isfinite(logits.float()).all())

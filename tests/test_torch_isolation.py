@@ -1,7 +1,7 @@
 """The port stands alone: importing ``repro_torch``, running a control
-plane tick and serving one smoke-size prefill + decode step load neither
-jax nor the JAX package (checked in a fresh interpreter), and the default
-entry points want the card."""
+plane tick, serving one smoke-size prefill + decode step and taking one
+smoke-size training step load neither jax nor the JAX package (checked in
+a fresh interpreter), and the default entry points want the card."""
 import os
 import subprocess
 import sys
@@ -41,6 +41,17 @@ _PROGRAM = textwrap.dedent("""
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
     res = serve(cfg, params, prompt, gen=1, use_kernel=True, device="cpu")
     assert res.tokens.shape == (2, 1), res.tokens.shape
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train_simulator
+    from repro_torch.train.trainer import FalconTrainer
+
+    cfg = get_config("mamba2-2.7b").smoke()
+    data = DataConfig(seq_len=16, global_batch=4, slots=2, dp_groups=2)
+    trainer = FalconTrainer(cfg=cfg, data=data, device="cpu",
+                            perf_model=train_simulator(cfg, data, device="cpu"))
+    hist = trainer.run(1)
+    assert np.isfinite(hist[0].loss), hist
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
