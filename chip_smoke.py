@@ -10,7 +10,8 @@ entry points, times the kernels and prints one line per phase. Phases, in
 order:
 
 1. environment: torch version, card name and power limit (``nvidia-smi``);
-2. build: the five kernels, in parallel, with the build seconds;
+2. build: the five kernels, in parallel, with the build seconds; the bf16
+   attention's machine code holds tensor-core instructions (HGMMA);
 3. kernel vs plain version on the card: ``bocd_step`` at K = 32,
    B = 16,384 over 60 ticks (a step change and a NaN column) and
    ``cell_reduce`` at (8, 160, 8) and (2, 2, 2), in float32 and float64;
@@ -19,6 +20,11 @@ order:
    non-causal, a window, a ragged Sq) in float32 and bfloat16; ``ssd_scan``
    (the reference's three test shapes, two groups included, and the
    mamba2-2.7b forward shape) in float32 and bfloat16, y and final state;
+   boundary sweeps of ``flash_attention`` (Sq = Skv around every tile edge,
+   three masks, hd 64/128, three GQA ratios) and ``flash_decode``
+   (``valid_len`` across the split and cluster edges, as ints and per
+   sequence, hd 32/64/128); bf16 attention rows also held to a relative
+   L2 error, beside the reading of a kernel that left out one key tile;
 4. the fleet screen: ``FleetDetect(n_workers=16384)`` on the ``cuda``
    backend for 200 ticks, flags identical to the numpy ``batched`` backend;
 5. the pipeline (slice 1's main path): ``ControlPlane.tick`` over a
@@ -36,7 +42,8 @@ order:
    the plain blocked attention reported;
 8. times: median CUDA-event time per call of each kernel, of its plain
    version and, where one PyTorch call computes the same function, of
-   that call, at the paths' shapes, beside the bound;
+   that call, at the paths' shapes, beside the bound, with its rate and its
+   ratios to that call and to the bound;
 9. parity at the published width, kernel route against plain route:
    teacher-forced decode on the same caches and the 4,096-token forward;
    bf16 differences reported, float32 (weights upcast exactly) held to a
@@ -116,6 +123,15 @@ TRAIN_STEPS = 30
 # reference's (tests/test_kernels.py:17). float32: summation order only;
 # bfloat16: both accumulate in float32 and round the result once to bf16.
 ATT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
+# bfloat16 also holds each output row (the hd values of one query and head)
+# to a relative L2 error, ||got - want|| / ||want||: in rows over thousands
+# of keys the outputs are of the size of ATT_TOL's atol, so the element-wise
+# bound alone would pass a kernel that dropped a tile there. Sound bf16
+# rows read a few 1e-3 (P and the output each rounded to bf16); a row
+# missing one 128-key tile of n keys reads about sqrt(128 / n), 0.18 at
+# n = 4,096. Phase 3 prints both readings at the forward shape.
+ATT_ROW_REL = 2e-2
+FAULT_TILE = 16   # the key tile the fault reading leaves out (keys 2,048-2,175)
 # Model logits, kernel route vs plain route on the same weights and caches,
 # held in float32 (weights upcast exactly): there the two routes differ only
 # in the attention's summation order (~1e-6 relative per layer). In bf16 one
@@ -179,6 +195,16 @@ def phase_build() -> None:
             regs = regs[:6] + [f"... {len(regs) - 6} more lines"]
         log(f"[2 build] {name}: " + (" | ".join(regs) or "built"))
     log(f"[2 build] {len(KERNELS)} kernels built in {secs:.2f} s (parallel nvcc)")
+    # The bf16 attention runs on the tensor cores: its library's machine code
+    # holds warpgroup matrix instructions (HGMMA) fed by TMA loads.
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[2 build] flash_attention SASS: {counts['HGMMA']} HGMMA (wgmma), "
+        f"{counts['UTMALDG']} UTMALDG (TMA loads)")
+    need(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+         f"flash_attention's library lacks tensor-core instructions: {counts}")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -322,6 +348,42 @@ def _att_err(torch, name, got, want, dt_name, tol=ATT_TOL):
     return float(diff.max())
 
 
+def _row_rel(torch, name, got, want, limit=ATT_ROW_REL):
+    """The worst relative L2 error over the output's rows (its last
+    dimension), held to ``limit``. A row that is zeros in ``want`` must be
+    zeros in ``got``."""
+    g = got.double().reshape(-1, got.shape[-1])
+    w = want.double().reshape(-1, want.shape[-1])
+    err, norm = (g - w).norm(dim=1), w.norm(dim=1)
+    zero = norm == 0
+    need(not bool(err[zero].any()), f"{name}: a row that should be zeros is not")
+    rel = float((err[~zero] / norm[~zero]).max()) if bool((~zero).any()) else 0.0
+    need(rel <= limit, f"{name}: a row's relative L2 error {rel:.3e} exceeds {limit:.0e}")
+    return rel
+
+
+def _one_tile_fault(torch, q, k, v, want):
+    """The relative L2 error of the rows of a causal attention that a kernel
+    leaving out key tile FAULT_TILE (128 keys) would get wrong: the plain
+    version's math with those keys masked for every later row, against
+    ``want``. Returns (least, most) over those rows."""
+    b, sq, h, hd = q.shape
+    skv, rep = k.shape[1], h // k.shape[2]
+    k0 = FAULT_TILE * 128
+    r0 = k0 + 128
+    kf = torch.repeat_interleave(k, rep, dim=2).float()
+    vf = torch.repeat_interleave(v, rep, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:].float() * hd**-0.5, kf)
+    rows = torch.arange(r0, sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    keep = (rows >= cols) & ((cols < k0) | (cols >= r0))
+    p = torch.softmax(s.masked_fill(~keep, -1e30), dim=-1)
+    fault = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype).double()
+    w = want[:, r0:].double()
+    rel = (fault - w).norm(dim=-1) / w.norm(dim=-1)
+    return float(rel.min()), float(rel.max())
+
+
 def _normal(torch, seed, shape, dtype):
     """Standard normal values made on the card from ``seed``."""
     gen = torch.Generator(device="cuda")
@@ -356,7 +418,7 @@ def phase_attention_kernels(torch):
     errs = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        worst, parts = 0.0, []
+        worst, parts, row_worst = 0.0, [], 0.0
         for i, (label, b, skv, h, kvh, hd, valid) in enumerate(DECODE_CASES):
             q = _normal(torch, 3 * i, (b, h, hd), dt)
             k = _normal(torch, 3 * i + 1, (b, skv, kvh, hd), dt)
@@ -367,6 +429,8 @@ def phase_attention_kernels(torch):
             want = flash_decode_reference(q, k, v, vl)
             torch.cuda.synchronize()
             e = _att_err(torch, f"flash_decode {dt_name} {label}", got, want, dt_name)
+            if dt_name == "bfloat16":
+                row_worst = max(row_worst, _row_rel(torch, f"flash_decode {label}", got, want))
             if isinstance(valid, list):
                 for row, n in enumerate(valid):
                     need(n > 0 or not bool(got[row].float().abs().max()),
@@ -378,8 +442,10 @@ def phase_attention_kernels(torch):
             worst = max(worst, e)
             parts.append(f"{label} {e:.2e}")
         errs[("flash_decode", dt_name)] = worst
-        log(f"[3 kernels] flash_decode {dt_name}: max abs err vs plain " + "; ".join(parts))
-        worst, parts = 0.0, []
+        rows = f"; worst row rel L2 {row_worst:.2e}" if dt_name == "bfloat16" else ""
+        log(f"[3 kernels] flash_decode {dt_name}: max abs err vs plain " + "; ".join(parts)
+            + rows)
+        worst, parts, row_worst = 0.0, [], 0.0
         for i, (label, b, sq, skv, h, kvh, hd, causal, window) in enumerate(ATTENTION_CASES):
             q = _normal(torch, 50 + 3 * i, (b, sq, h, hd), dt)
             k = _normal(torch, 51 + 3 * i, (b, skv, kvh, hd), dt)
@@ -390,11 +456,92 @@ def phase_attention_kernels(torch):
             e = _att_err(torch, f"flash_attention {dt_name} {label}", got, want, dt_name)
             worst = max(worst, e)
             parts.append(f"{label} {e:.2e}")
+            if dt_name == "bfloat16":
+                rel = _row_rel(torch, f"flash_attention {label}", got, want)
+                row_worst = max(row_worst, rel)
+                if sq == FORWARD_LEN:
+                    fault = _one_tile_fault(torch, q, k, v, want)
+                    need(fault[0] > ATT_ROW_REL,
+                         f"flash_attention: a row missing key tile {FAULT_TILE} reads "
+                         f"{fault[0]:.3e}, within the row limit {ATT_ROW_REL:.0e}")
+                    log(f"[3 kernels] flash_attention bf16 forward shape: worst row rel L2 "
+                        f"{rel:.3e} (kernel vs plain); rows missing key tile {FAULT_TILE} "
+                        f"read {fault[0]:.3e}-{fault[1]:.3e}; limit {ATT_ROW_REL:.0e}")
             del q, k, v, got, want
         errs[("flash_attention", dt_name)] = worst
-        log(f"[3 kernels] flash_attention {dt_name}: max abs err vs plain " + "; ".join(parts))
+        rows = f"; worst row rel L2 {row_worst:.2e}" if dt_name == "bfloat16" else ""
+        log(f"[3 kernels] flash_attention {dt_name}: max abs err vs plain " + "; ".join(parts)
+            + rows)
+        errs.update(_attention_sweeps(torch, dt_name))
     torch.cuda.empty_cache()
     return errs
+
+
+# Boundary sweeps. flash_attention: Sq = Skv on both sides of the 16-row
+# fragments of a warp, the 64-row tiles (a bf16 warpgroup's, the float32
+# blocks'), the 64/128-key tiles and the 128-row bf16 blocks, under
+# each mask, at both head dims and three GQA ratios (H = 4), and one
+# Sq != Skv case. flash_decode: valid_len across the split (128
+# positions) and cluster (8 splits) boundaries, as an int and as a
+# per-sequence tensor with zeros among the lengths, at every head dim.
+SWEEP_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000)
+SWEEP_MASKS = ((True, 0), (False, 0), (True, 48))   # causal, non-causal, window 48
+SWEEP_DECODE_SKV = 1536
+SWEEP_VALID = (0, 1, 127, 128, 129, 1023, 1088, SWEEP_DECODE_SKV)
+
+
+def _attention_sweeps(torch, dt_name):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_reference)
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_reference
+
+    dt = getattr(torch, dt_name)
+    worst, n, row_worst = 0.0, 0, 0.0
+    shapes = [(1, s, s, 4, kvh, hd, causal, window) for s in SWEEP_LENGTHS
+              for causal, window in SWEEP_MASKS for hd in (64, 128) for kvh in (1, 2, 4)]
+    shapes += [(2, 129, 1000, 8, 2, 128, causal, window) for causal, window in SWEEP_MASKS]
+    for i, (b, sq, skv, h, kvh, hd, causal, window) in enumerate(shapes):
+        q = _normal(torch, 200 + 3 * i, (b, sq, h, hd), dt)
+        k = _normal(torch, 201 + 3 * i, (b, skv, kvh, hd), dt)
+        v = _normal(torch, 202 + 3 * i, (b, skv, kvh, hd), dt)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_reference(q, k, v, causal=causal, window=window)
+        name = (f"flash_attention {dt_name} sweep B={b} Sq={sq} Skv={skv} H={h} KVH={kvh} "
+                f"hd={hd} causal={causal} window={window}")
+        worst = max(worst, _att_err(torch, name, got, want, dt_name))
+        if dt_name == "bfloat16":
+            row_worst = max(row_worst, _row_rel(torch, name, got, want))
+        n += 1
+    rows = f", worst row rel L2 {row_worst:.2e}" if dt_name == "bfloat16" else ""
+    log(f"[3 kernels] flash_attention {dt_name} boundary sweep: {n} cases (Sq = Skv in "
+        f"{SWEEP_LENGTHS} x 3 masks x hd 64/128 x KVH 1/2/4, and Sq 129 != Skv 1000), "
+        f"max abs err vs plain {worst:.2e}" + rows)
+    out = {("flash_attention sweep", dt_name): worst}
+    worst, n, row_worst = 0.0, 0, 0.0
+    b, h, kvh = len(SWEEP_VALID), 8, 2
+    for hd in (32, 64, 128):
+        q = _normal(torch, 300 + hd, (b, h, hd), dt)
+        k = _normal(torch, 301 + hd, (b, SWEEP_DECODE_SKV, kvh, hd), dt)
+        v = _normal(torch, 302 + hd, (b, SWEEP_DECODE_SKV, kvh, hd), dt)
+        lens = torch.tensor(SWEEP_VALID, dtype=torch.int32, device="cuda")
+        for valid in (*SWEEP_VALID, lens):
+            got = flash_decode(q, k, v, valid)
+            want = flash_decode_reference(q, k, v, valid)
+            label = "per-sequence" if isinstance(valid, torch.Tensor) else valid
+            name = f"flash_decode {dt_name} sweep hd={hd} valid_len={label}"
+            worst = max(worst, _att_err(torch, name, got, want, dt_name))
+            if dt_name == "bfloat16":
+                row_worst = max(row_worst, _row_rel(torch, name, got, want))
+            zero = got[lens == 0] if isinstance(valid, torch.Tensor) else got[:b * (valid == 0)]
+            need(bool((zero == 0).all()),
+                 f"flash_decode {dt_name} sweep hd={hd}: a row with valid_len 0 is not zeros")
+            n += 1
+    rows = f", worst row rel L2 {row_worst:.2e}" if dt_name == "bfloat16" else ""
+    log(f"[3 kernels] flash_decode {dt_name} valid_len sweep: {n} calls (valid_len in "
+        f"{SWEEP_VALID} as ints and as one per-sequence tensor, Skv {SWEEP_DECODE_SKV}, "
+        f"hd 32/64/128), max abs err vs plain {worst:.2e}" + rows)
+    out[("flash_decode sweep", dt_name)] = worst
+    return out
 
 
 def _sim_10k(reduction, device=None):
@@ -937,6 +1084,12 @@ def _library_ms(torch, fn, label):
     return _device_ms(torch, fn)[0]
 
 
+def _ratios(row, lib_ms):
+    """'x.xx x sdpa, y.y x bound' for a kernel row."""
+    lib = "no sdpa" if lib_ms is None else f"{row['ms'] / lib_ms:.2f} x sdpa"
+    return f"{lib}, {row['ms'] / row['bound_ms']:.2f} x its bound"
+
+
 def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
     import torch.nn.functional as F
 
@@ -970,7 +1123,7 @@ def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib} (device, median "
             f"of >=100); per call with host {call_ms:.4f} ms; bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB); "
-            f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; card: {card}")
+            f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; {_ratios(row, lib_ms)}; card: {card}")
         if skv == SERVE_PROMPT + SERVE_GEN:
             out.append(row)
         del q, k, v, kt, vt
@@ -979,25 +1132,25 @@ def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
     q = _normal(torch, 93, (b, s, h, hd), bf)
     k = _normal(torch, 94, (b, s, kvh, hd), bf)
     v = _normal(torch, 95, (b, s, kvh, hd), bf)
-    ms, call_ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=True),
-                             runs=30)
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    flops = 4 * b * h * hd * (s * (s + 1) // 2)
+    ms, call_ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=True), runs=30)
     plain_ms, _ = _device_ms(torch, lambda: flash_attention_reference(q, k, v, causal=True),
                              runs=30)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), "flash_attention sdpa")
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-    flops = 4 * b * h * hd * (s * (s + 1) // 2)
     row = _row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention.py:91", forward_launches["flash_attention"],
                errs[("flash_attention", "bfloat16")], ms, plain_ms, nbytes, flops,
                BF16_FLOP_PER_S, lib_ms)
     out.append(row)
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"[8 times] flash_attention bf16 causal B={b} S={s} H={h} KVH={kvh} hd={hd}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib} (device, median of "
-        f">=30); bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.1f} "
-        f"GFLOP); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; card: {card}")
+    log(f"[8 times] flash_attention bf16 causal B={b} S={s} H={h} KVH={kvh} hd={hd}: kernel "
+        f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; {_ratios(row, lib_ms)}), "
+        f"plain {plain_ms:.4f} ms, sdpa {lib} (device, median of >=30); per call with host "
+        f"{call_ms:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+        f"{flops / 1e9:.1f} GFLOP); card: {card}")
     flash_decode.launches, flash_attention.launches = saved
     return out
 

@@ -7,10 +7,14 @@ blocked online-softmax attention with GQA, causal and sliding-window masks.
 (the materialized math of ``ref.attention_ref``), which
 :func:`flash_attention` runs for tensors on the CPU.
 
-What bounds the kernel on the H100: operations (~137 GFLOP, ~0.139 ms at
-the bf16 tensor-core peak, for the 4,096-token forward of granite-3-8b's
-32/8 heads). This first kernel computes in float32 on the CUDA cores; the
-ragged Sq/Skv edges are masked inside it, so no padded copies are made.
+What bounds the kernel on the H100: operations (~137.5 GFLOP, ~0.139 ms
+at the bf16 tensor-core peak, for the 4,096-token forward of
+granite-3-8b's 32/8 heads). In bf16 the kernel runs both products on the
+tensor cores (``wgmma``, float32 accumulation, P rounded to bf16 before
+P·V) with K/V tiles brought in by TMA; its inputs must start and have their
+row strides on 16-byte boundaries. float32 stays on the CUDA cores in full
+float32. The ragged Sq/Skv edges are masked inside the kernel, so no padded
+copies are made.
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ def _check(name: str, t: torch.Tensor, q: torch.Tensor, b: int, hd: int):
                          f"expected ({b}, S, heads, {hd})")
     if t.stride(3) != 1:
         raise ValueError(f"flash_attention: {name}'s last dimension must be contiguous")
+    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+        raise ValueError(f"flash_attention: {name} must start and have its row strides on "
+                         "16-byte boundaries (the bf16 kernel copies 16 bytes at a time)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:

@@ -4,8 +4,9 @@
 The reference's TPU tiling arguments are dropped: ``block_q``/``block_k``
 sized Pallas blocks for the TPU's VMEM and 128 x 128 matrix unit, and
 ``interpret`` ran the Pallas program in Python on the CPU. Here each CUDA
-kernel fixes its own tiling (64 x 64 tiles for attention; about 128 cache
-positions per split for decode; 32 state rows per block for the SSD scan,
+kernel fixes its own tiling (128 query rows by 128 keys for bf16
+attention, 64 by 64 for float32; about 128 cache positions per split, at
+most 8 splits, for decode; 32 state rows per block for the SSD scan,
 whose ``chunk`` stays an argument because it changes the result's
 rounding), and a tensor on the CPU takes the kernel's plain PyTorch
 version.

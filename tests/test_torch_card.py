@@ -185,6 +185,100 @@ def test_flash_attention_kernel_matches_plain_version(card, dtype, b, sq, skv, h
     _close(got, want, dtype)
 
 
+# Tile-boundary sweep of flash_attention: sequence lengths on both sides of
+# the 16-row fragments of a warp, the 64-row tiles (a bf16 warpgroup's, the
+# float32 blocks'), the 64/128-key tiles and the 128-row bf16 blocks,
+# under each mask, at both head dims and three GQA ratios, in bf16 and
+# float32.
+ATT_SWEEP_LENGTHS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000]
+ATT_SWEEP_MASKS = [(True, 0), (False, 0), (True, 48)]   # causal, non-causal, window 48
+
+
+@pytest.mark.parametrize("causal,window", ATT_SWEEP_MASKS)
+@pytest.mark.parametrize("s", ATT_SWEEP_LENGTHS)
+def test_flash_attention_tile_boundary_sweep(card, s, causal, window):
+    h = 4
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (64, 128):
+            for kvh in (1, 2, h):
+                q = _normal(card, 20 + s, (1, s, h, hd), dtype)
+                k = _normal(card, 21 + s, (1, s, kvh, hd), dtype)
+                v = _normal(card, 22 + s, (1, s, kvh, hd), dtype)
+                got = fa.flash_attention(q, k, v, causal=causal, window=window)
+                want = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", ATT_SWEEP_MASKS)
+def test_flash_attention_sweep_with_sq_not_skv(card, dtype, causal, window):
+    q = _normal(card, 30, (2, 129, 8, 128), dtype)
+    k = _normal(card, 31, (2, 1000, 2, 128), dtype)
+    v = _normal(card, 32, (2, 1000, 2, 128), dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_reference(q, k, v, causal=causal, window=window)
+    _close(got, want, dtype)
+
+
+# valid_len sweep of flash_decode across the split (128 positions) and
+# cluster (8 splits) boundaries, as an int and as a per-sequence tensor
+# with zeros among the lengths.
+DECODE_SKV = 1536
+DECODE_SWEEP = [0, 1, 127, 128, 129, 1023, 1088, DECODE_SKV]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_decode_valid_len_sweep(card, dtype, hd):
+    b, h, kvh = len(DECODE_SWEEP), 8, 2
+    q = _normal(card, 40, (b, h, hd), dtype)
+    k = _normal(card, 41, (b, DECODE_SKV, kvh, hd), dtype)
+    v = _normal(card, 42, (b, DECODE_SKV, kvh, hd), dtype)
+    for valid in DECODE_SWEEP:
+        got = fd.flash_decode(q, k, v, valid)
+        _close(got, fd.flash_decode_reference(q, k, v, valid), dtype)
+        if valid == 0:
+            assert not bool(got.float().abs().max())
+    lens = torch.tensor(DECODE_SWEEP, dtype=torch.int32, device=card)
+    got = fd.flash_decode(q, k, v, lens)
+    _close(got, fd.flash_decode_reference(q, k, v, lens), dtype)
+    assert not bool(got[0].float().abs().max())
+    assert bool(got[1:].float().abs().amax(dim=(1, 2)).gt(0).all())
+
+
+def _cuda_kernels(fn):
+    """Names of the CUDA kernels one call of ``fn`` ran, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()   # built and bound before the traced call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("valid", ["int", "tensor"])
+def test_flash_decode_is_one_kernel_per_call(card, valid):
+    q = _normal(card, 50, (8, 32, 128), torch.bfloat16)
+    k = _normal(card, 51, (8, 1088, 8, 128), torch.bfloat16)
+    v = _normal(card, 52, (8, 1088, 8, 128), torch.bfloat16)
+    lens = 1088 if valid == "int" else torch.full((8,), 1088, dtype=torch.int32, device=card)
+    names = _cuda_kernels(lambda: fd.flash_decode(q, k, v, lens))
+    assert len(names) == 1 and "decode_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_one_kernel_per_call(card, dtype):
+    q = _normal(card, 53, (1, 512, 32, 128), dtype)
+    k = _normal(card, 54, (1, 512, 8, 128), dtype)
+    v = _normal(card, 55, (1, 512, 8, 128), dtype)
+    names = _cuda_kernels(lambda: fa.flash_attention(q, k, v, causal=True))
+    assert len(names) == 1 and "attention" in names[0], names
+
+
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(card):
     q = _normal(card, 10, (2, 4, 48), torch.float32)
     k = _normal(card, 11, (2, 16, 2, 48), torch.float32)

@@ -127,7 +127,28 @@ def test_cpu_calls_do_not_count_as_launches():
 
 
 @pytest.mark.parametrize("max_len,splits", [
-    (0, 1), (1, 1), (128, 1), (129, 2), (1088, 9), (32768, 64), (10**6, 64),
+    (0, 1), (1, 1), (128, 1), (129, 2), (1088, 8), (32768, 8), (10**6, 8),
 ])
 def test_split_count_follows_the_valid_prefix(max_len, splits):
+    """About one split per 128 valid positions, at most 8: the splits of a
+    (sequence, KV head) form one thread-block cluster of the portable size."""
     assert fd.num_splits(max_len) == splits
+
+
+def test_splits_cover_the_valid_prefix_exactly_once():
+    """The kernel's split arithmetic (``split_chunk``, c = ceil(len /
+    n_split); split s reads [min(s * c, len), min(s * c + c, len)), as the
+    kernel's block does) covers [0, valid_len) once, in order, for every
+    length up to 2,048 at the split count of a 32,768-position cache (a
+    per-sequence ``valid_len``) and at the count its own length gives (an
+    int)."""
+    skv = 32768
+    for length in range(0, 2049):
+        for n_split in {fd.num_splits(skv), fd.num_splits(length)}:
+            chunk = fd.split_chunk(length, n_split)
+            covered = []
+            for split in range(n_split):
+                start = min(split * chunk, length)
+                end = min(start + chunk, length)
+                covered.extend(range(start, end))
+            assert covered == list(range(length))
