@@ -11,15 +11,20 @@ order:
 
 1. environment: torch version, card name and power limit (``nvidia-smi``);
 2. build: the five kernels, in parallel, with the build seconds; the bf16
-   attention's machine code holds tensor-core instructions (HGMMA);
+   attention's machine code holds tensor-core instructions (HGMMA) fed by
+   TMA loads, and so does the SSD scan's;
 3. kernel vs plain version on the card: ``bocd_step`` at K = 32,
-   B = 16,384 over 60 ticks (a step change and a NaN column) and
+   B = 16,384, 1 and 1,000, and at K = 256 (FleetDetect's adaptive cap),
+   B = 16,384 and 1,000, over 60 ticks (a step change and a NaN column) and
    ``cell_reduce`` at (8, 160, 8) and (2, 2, 2), in float32 and float64;
    ``flash_decode`` (GQA rep 4, MQA, per-sequence lengths, valid_len 1 and
    0, a cache length off the split grid) and ``flash_attention`` (causal,
    non-causal, a window, a ragged Sq) in float32 and bfloat16; ``ssd_scan``
    (the reference's three test shapes, two groups included, and the
-   mamba2-2.7b forward shape) in float32 and bfloat16, y and final state;
+   mamba2-2.7b forward shape, also with a dt 100x smaller that carries the
+   state through every chunk) in float32 and bfloat16, y and final state,
+   each bf16 row of y also held to a relative L2 error beside the reading
+   of a plain version that drops the state entering one chunk;
    boundary sweeps of ``flash_attention`` (Sq = Skv around every tile edge,
    three masks, hd 64/128, three GQA ratios) and ``flash_decode``
    (``valid_len`` across the split and cluster edges, as ints and per
@@ -43,15 +48,16 @@ order:
 8. times: median CUDA-event time per call of each kernel, of its plain
    version and, where one PyTorch call computes the same function, of
    that call, at the paths' shapes, beside the bound, with its rate and its
-   ratios to that call and to the bound;
+   ratios to that call and to the bound; the CUDA kernels of one
+   ``bocd_step`` call (torch.profiler), its time held to BOCD_GATE_MS;
 9. parity at the published width, kernel route against plain route:
    teacher-forced decode on the same caches and the 4,096-token forward;
    bf16 differences reported, float32 (weights upcast exactly) held to a
    tolerance. granite-3-8b's tensors are released after it;
 10. the mamba2-2.7b forward (slice 3's forward path) at its published width
-    over 4,096 tokens: ``ssd_scan`` launched once per layer (64), the
-    kernel route against the plain chunked SSD, bf16 reported, float32 held
-    to a tolerance;
+    over 4,096 tokens: ``ssd_scan`` launched once per layer (64), faster
+    than the plain chunked SSD, the two routes' logits in bf16 reported,
+    in float32 held to a tolerance;
 11. mamba2-2.7b serving: ``serve`` with 4 requests x (512 prompt + 32
     generated) and ``gpu:1:0.5:1:200``: the FALCON onset of the CPU latency
     loop, and in float32 the teacher-forced decode logits (prefill and the
@@ -62,7 +68,9 @@ order:
     finite losses, the control-plane event log identical to a CPU replay of
     the same simulator, injector and observe loop without the model, with a
     diagnosis and a mitigation in it; seconds per step and peak memory;
-13. the SSD scan's times at the forward shape (as phase 8).
+13. the SSD scan's times at the forward shape (as phase 8), split by
+    kernel (torch.profiler), beside the bound and the design's own floor;
+    at most SSD_GATE_MS and faster than the plain chunked route.
 
 Any failure exits non-zero. The last two lines are a JSON object with one
 entry per kernel and ``{"ok": true, "device": {...}}``. The script imports
@@ -205,6 +213,14 @@ def phase_build() -> None:
         f"{counts['UTMALDG']} UTMALDG (TMA loads)")
     need(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
          f"flash_attention's library lacks tensor-core instructions: {counts}")
+    # So does the bf16 SSD scan (wgmma: HGMMA).
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("ssd_scan"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[2 build] ssd_scan SASS: {counts['HGMMA']} HGMMA (wgmma), {counts['UTMALDG']} "
+        f"UTMALDG (TMA loads)")
+    need(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+         f"ssd_scan's library lacks tensor-core instructions: {counts}")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -279,10 +295,14 @@ def phase_kernels(torch, np):
 
     dev = torch.device("cuda")
     hazard, trunc = 1.0 / 100.0, 1e-6
-    k, ticks = 32, 60
+    ticks = 60
     errs = {}
     names = ("log_r", "mu", "beta", "kappa", "alpha", "rl", "p0")
-    for b, dt_name in ((16384, "float32"), (16384, "float64"), (1, "float32")):
+    # K = 256: FleetDetect's adaptive cap at its upper bound, above the 128
+    # rows a column's threads hold at a time.
+    for k, b, dt_name in ((32, 16384, "float32"), (32, 16384, "float64"), (32, 1, "float32"),
+                          (32, 1000, "float64"), (256, 16384, "float32"),
+                          (256, 1000, "float64")):
         x = _bocd_inputs(np, b, ticks)
         dt = getattr(torch, dt_name)
         state, mu0 = _bocd_init(torch, np, x[0], k, dt, dev)
@@ -306,7 +326,7 @@ def phase_kernels(torch, np):
                  "bocd_step: the NaN stream did not stay NaN")
             need(not bool(torch.isnan(state[0][:, nan_col + 1]).any()),
                  "bocd_step: NaN leaked into a neighbouring stream")
-        errs[("bocd_step", dt_name, b)] = max(worst.values())
+        errs[("bocd_step", dt_name, b, k)] = max(worst.values())
         log(f"[3 kernels] bocd_step {dt_name} K={k} B={b} {ticks} ticks: max abs err "
             f"log_r {worst['log_r']:.3e} p0 {worst['p0']:.3e} mu {worst['mu']:.3e} "
             f"beta {worst['beta']:.3e}; truncation-boundary flips {flips}")
@@ -1006,16 +1026,19 @@ def phase_times(torch, np, card, errs, launches):
     saved = bocd_step.launches
     ms, call_ms = _device_ms(torch, lambda: bocd_step(*args))
     plain_ms, plain_call_ms = _device_ms(torch, lambda: bocd_step_reference(*args))
+    split = _kernel_split(torch, lambda: bocd_step(*args))
     bocd_step.launches = saved
     nbytes = 4 * (6 * k * b + 3 * b + 6 * k)   # state, x, mu0, p0, (K,1) vectors
     flops = 45 * k * b                          # ~45 operations per (slot, stream)
     out.append(_row("bocd_step", "src/repro_torch/kernels/csrc/bocd_step.cu",
                     "src/repro/kernels/bocd_step.py:179", launches["bocd_step"],
-                    errs[("bocd_step", "float32", 16384)], ms, plain_ms, nbytes, flops))
+                    errs[("bocd_step", "float32", 16384, k)], ms, plain_ms, nbytes, flops))
     log(f"[8 times] bocd_step f32 K={k} B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
         f"(device, median of >=100); per call with host {call_ms:.4f} / "
         f"{plain_call_ms:.4f} ms; bound {out[-1]['bound_ms']:.4f} ms ({out[-1]['bound_by']}); "
-        f"card: {card}")
+        f"CUDA kernels per call: {split}; limit {BOCD_GATE_MS} ms; card: {card}")
+    need(ms <= BOCD_GATE_MS, f"bocd_step f32 K={k} B={b} takes {ms:.4f} ms, above "
+         f"{BOCD_GATE_MS} ms")
     # The pipeline's screen is one stream wide: the same step at B = 1.
     x1 = _bocd_inputs(np, 1, 2)
     state1, mu01 = _bocd_init(torch, np, x1[0], k, torch.float32, dev)
@@ -1028,6 +1051,19 @@ def phase_times(torch, np, card, errs, launches):
     log(f"[8 times] bocd_step f32 K={k} B=1 (the pipeline's screen): kernel {ms1:.4f} ms, "
         f"plain {plain1:.4f} ms (device, median of >=100); per call with host "
         f"{call1:.4f} / {plain_call1:.4f} ms; card: {card}")
+    # FleetDetect's adaptive cap at its upper bound: K = 256, above the 128
+    # slots whose rows stay in registers (reported).
+    for xs in (x, x1):
+        state256, mu0256 = _bocd_init(torch, np, xs[0], 256, torch.float32, dev)
+        args256 = (torch.as_tensor(xs[1]).to(dev, torch.float32), *state256, mu0256,
+                   0.01, 1.0, 1.0, 1.0, 1e-6)
+        saved = bocd_step.launches
+        ms256, call256 = _device_ms(torch, lambda: bocd_step(*args256))
+        plain256, _ = _device_ms(torch, lambda: bocd_step_reference(*args256))
+        bocd_step.launches = saved
+        log(f"[8 times] bocd_step f32 K=256 B={xs.shape[1]}: kernel {ms256:.4f} ms, plain "
+            f"{plain256:.4f} ms (device, median of >=100); per call with host "
+            f"{call256:.4f} ms; card: {card}")
     # cell_reduce at the 10,240-device job, float32.
     arrays, consts, _ = _cells_of(np, (8, 160, 8))
     torch.cuda.synchronize()
@@ -1156,25 +1192,59 @@ def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
 
 
 # ------------------------------------------------------- phases 10 to 13
-SSD_CASES = (   # label, B, S, H, P, G, N, chunk
-    ("16-step chunks, N 16", 1, 64, 2, 32, 1, 16, 16),
-    ("two groups", 2, 128, 4, 64, 2, 32, 32),
-    ("three chunks, P 16", 1, 96, 2, 16, 1, 8, 32),
-    ("the forward shape", 1, FORWARD_LEN, 80, 64, 1, 128, 128),
+SSD_CASES = (   # label, B, S, H, P, G, N, chunk, dt scale
+    ("16-step chunks, N 16", 1, 64, 2, 32, 1, 16, 16, 0.5),
+    ("two groups", 2, 128, 4, 64, 2, 32, 32, 0.5),
+    ("three chunks, P 16", 1, 96, 2, 16, 1, 8, 32, 0.5),
+    ("the forward shape", 1, FORWARD_LEN, 80, 64, 1, 128, 128, 0.5),
+    ("long memory, the forward shape", 1, FORWARD_LEN, 80, 64, 1, 128, 128, 0.005),
 )
+# The reference's dt (softplus(normal) / 2, a ~ -1) decays the state by
+# ~e^-51 a 128-step chunk, so those inputs cannot tell the recurrence across
+# chunks from a kernel that drops it; dt 100x smaller decays by ~e^-0.5 a
+# chunk and carries the state through all 32 chunks.
+# bf16 y is also held row by row (the P values of one (b, t, h)) to a
+# relative L2 error. Sound rows read a few 1e-3 (y rounded to bf16); a
+# plain version that drops the state entering chunk FAULT_CHUNK reads far
+# above the limit on the long-memory inputs (phase 3 prints both).
+SSD_ROW_REL = 2e-2
+FAULT_CHUNK = 16
+# Limits on the card, both held on device time: bf16 ssd_scan at the
+# forward shape at most 0.5 ms (and faster than the plain chunked route);
+# bocd_step at K 32, B 16,384 float32 at most 0.025 ms.
+SSD_GATE_MS = 0.5
+BOCD_GATE_MS = 0.025
 
 
-def _ssd_inputs(torch, seed, shape, dtype):
+def _ssd_inputs(torch, seed, shape, dtype, dt_scale=0.5):
     """x, dt, a, B, C as the reference's kernel tests make them: dt =
-    softplus(normal) / 2 and a = -exp(normal / 5) in float32, the rest in
-    ``dtype``."""
+    softplus(normal) * dt_scale (their 0.5 by default) and a =
+    -exp(normal / 5) in float32, the rest in ``dtype``."""
     b, s, h, p, g, n = shape
     x = _normal(torch, seed, (b, s, h, p), dtype)
-    dt = torch.nn.functional.softplus(_normal(torch, seed + 1, (b, s, h), torch.float32)) * 0.5
+    dt = torch.nn.functional.softplus(_normal(torch, seed + 1, (b, s, h), torch.float32))
+    dt = dt * dt_scale
     a = -torch.exp(_normal(torch, seed + 2, (h,), torch.float32) * 0.2)
     bm = _normal(torch, seed + 3, (b, s, g, n), dtype)
     cm = _normal(torch, seed + 4, (b, s, g, n), dtype)
     return x, dt, a, bm, cm
+
+
+def _dropped_handoff(torch, ins, chunk, want):
+    """The relative L2 error of the rows of chunk FAULT_CHUNK that a scan
+    dropping the state entering that chunk would give (the plain chunked
+    route in float32 from that chunk on, from no initial state), against
+    ``want``. Returns (least, most) over those rows."""
+    from repro_torch.models.ssm import ssd_scan as chunked
+
+    x, dt, a, bm, cm = (t.float() for t in ins)
+    cut = FAULT_CHUNK * chunk
+    tail = [t[:, cut:] if t.dim() > 1 else t for t in (x, dt, a, bm, cm)]
+    y_tail, _ = chunked(*tail, chunk)   # the handoff into chunk FAULT_CHUNK dropped
+    fault = y_tail[:, :chunk].to(want.dtype).double()
+    w = want[:, cut:cut + chunk].double()
+    rel = (fault - w).norm(dim=-1) / w.norm(dim=-1)
+    return float(rel.min()), float(rel.max())
 
 
 def phase_ssd_kernel(torch):
@@ -1183,9 +1253,9 @@ def phase_ssd_kernel(torch):
     errs = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        worst, parts = 0.0, []
-        for i, (label, b, s, h, p, g, n, chunk) in enumerate(SSD_CASES):
-            ins = _ssd_inputs(torch, 70 + 5 * i, (b, s, h, p, g, n), dt)
+        worst, parts, row_worst = 0.0, [], 0.0
+        for i, (label, b, s, h, p, g, n, chunk, scale) in enumerate(SSD_CASES):
+            ins = _ssd_inputs(torch, 70 + 5 * i, (b, s, h, p, g, n), dt, scale)
             y, st = ssd_scan(*ins, chunk=chunk)
             y_r, st_r = ssd_scan_reference(*ins)
             torch.cuda.synchronize()
@@ -1194,10 +1264,23 @@ def phase_ssd_kernel(torch):
                              dt_name, SSD_TOL))
             worst = max(worst, e)
             parts.append(f"{label} {e:.2e}")
+            if dt_name == "bfloat16":
+                rel = _row_rel(torch, f"ssd_scan {label}", y, y_r, SSD_ROW_REL)
+                row_worst = max(row_worst, rel)
+                if s == FORWARD_LEN and scale < 0.5:
+                    fault = _dropped_handoff(torch, ins, chunk, y_r)
+                    need(fault[0] > SSD_ROW_REL,
+                         f"ssd_scan: a row of chunk {FAULT_CHUNK} without the state entering "
+                         f"it reads {fault[0]:.3e}, within the row limit {SSD_ROW_REL:.0e}")
+                    log(f"[3 kernels] ssd_scan bf16 {label}: worst row rel L2 {rel:.3e} "
+                        f"(kernel vs plain); rows of chunk {FAULT_CHUNK} without the state "
+                        f"entering it read {fault[0]:.3e}-{fault[1]:.3e}; limit "
+                        f"{SSD_ROW_REL:.0e}")
             del ins, y, st, y_r, st_r
         errs[("ssd_scan", dt_name)] = worst
+        rows = f"; worst row rel L2 {row_worst:.2e}" if dt_name == "bfloat16" else ""
         log(f"[3 kernels] ssd_scan {dt_name}: max abs err vs plain (y and final state) "
-            + "; ".join(parts))
+            + "; ".join(parts) + rows)
     torch.cuda.empty_cache()
     return errs
 
@@ -1223,27 +1306,35 @@ def phase_mamba_forward(torch, np, card):
     rng = np.random.default_rng(2)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, FORWARD_LEN)),
                              device="cuda")
+    def timed(use_kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = model_lib.forward(params, {"tokens": tokens}, cfg, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
     with torch.no_grad():
-        torch.cuda.synchronize()
         read = _zero_launches()
-        t0 = time.perf_counter()
-        got, _ = model_lib.forward(params, {"tokens": tokens}, cfg, use_kernel=True)
-        torch.cuda.synchronize()
-        kern_s = time.perf_counter() - t0
+        got, kern_s = timed(True)
         launches = read()
-        t0 = time.perf_counter()
-        want, _ = model_lib.forward(params, {"tokens": tokens}, cfg)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
+        want, plain_s = timed(False)
+        # Each route's time is the median of three forwards, taken in turns.
+        kern_t, plain_t = [kern_s], [plain_s]
+        for _ in range(2):
+            kern_t.append(timed(True)[1])
+            plain_t.append(timed(False)[1])
+        kern_s, plain_s = statistics.median(kern_t), statistics.median(plain_t)
     need(launches["ssd_scan"] == cfg.num_layers,
          f"ssd_scan launched {launches['ssd_scan']} times, expected {cfg.num_layers}")
+    need(kern_s < plain_s, f"the kernel route ({kern_s:.3f} s) is not faster than the plain "
+         f"chunked route ({plain_s:.3f} s)")
     worst, _, rel, agree = _logit_diff(torch, got, want, cfg.vocab_size)
     del got, want
     log(f"[10 mamba forward] {cfg.name} published width ({n_params / 1e9:.3f} B "
         f"parameters, bf16, init {init_s:.2f} s), forward over (1, {FORWARD_LEN}) tokens, "
         f"use_kernel: launches {launches}; vs the plain chunked SSD in bf16: max abs logit "
         f"diff {worst:.3e}, relative L2 {rel:.3e}, argmax agrees {agree:.4%}; {kern_s:.3f} s "
-        f"kernel route, {plain_s:.3f} s plain route (host clock); card: {card}")
+        f"kernel route, {plain_s:.3f} s plain route (host clock, median of 3); card: {card}")
     cfg32 = replace(cfg, dtype="float32")
     params32 = _as_float(torch, params)
     with torch.no_grad():
@@ -1450,15 +1541,49 @@ def phase_times_ssd(torch, card, errs, forward_launches):
                "src/repro/kernels/ssd_scan.py:82", forward_launches["ssd_scan"],
                errs[("ssd_scan", "bfloat16")], ms, plain_ms, nbytes, flops,
                BF16_FLOP_PER_S, None)
+    # The design's own floor: x read twice (chunk states, outputs); each
+    # chunk's float32 state written and read, the state entering it (bf16
+    # hi and lo planes) written and read; y written once; B, C, dt, the
+    # (cum, dt) scratch and the final state.
+    state_bytes = 4 * b * h * nc * p * n
+    design = (2 * 2 * b * s * h * p + 4 * state_bytes + 2 * b * s * h * p
+              + 2 * (2 * b * s * g * n + b * s * h + b * h * p * n) + 3 * 4 * b * h * nc * 2 * q)
+    split = _kernel_split(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=q))
+    ssd_scan.launches = saved
     log(f"[13 times] ssd_scan bf16 B={b} S={s} H={h} P={p} G={g} N={n} chunk={q}: kernel "
         f"{ms:.4f} ms (device, median of >=100; per call with host {call_ms:.4f} ms), plain "
         f"sequential recurrence {plain_ms:.4f} ms (median of 3; per call with host "
         f"{plain_call:.4f} ms), plain chunked route {chunked_ms:.4f} ms, library none; bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
-        f"{flops / 1e9:.2f} GFLOP); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
-        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s; card: {card}")
+        f"{flops / 1e9:.2f} GFLOP); the design's floor {design / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"({design / 1e6:.1f} MB); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s of the function's bytes; per kernel "
+        f"(torch.profiler, mean of 10 calls) {split}; card: {card}")
+    need(ms <= SSD_GATE_MS and ms < chunked_ms,
+         f"ssd_scan bf16 takes {ms:.4f} ms: above {SSD_GATE_MS} ms or not faster than the "
+         f"plain chunked route ({chunked_ms:.4f} ms)")
     del x, dt, a, bm, cm
     return row
+
+
+def _kernel_split(torch, fn, calls=10):
+    """'name us; ...': mean device microseconds per call of each CUDA kernel
+    ``fn`` runs, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = (e.name.replace("(anonymous namespace)::", "").split("(")[0]
+                    .split("<")[0].split()[-1].split("::")[-1])
+            total[name] = total.get(name, 0.0) + e.device_time_total / calls
+    return "; ".join(f"{k} {v:.1f} us" for k, v in sorted(total.items(), key=lambda kv: -kv[1]))
 
 
 def main() -> int:

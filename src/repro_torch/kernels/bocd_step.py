@@ -166,25 +166,36 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 _p, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: C signature of ``bocd_step_f32`` / ``bocd_step_f64``
 _ARGTYPES = (
-    [_p] * 8 + [_i, _i] + [_d] * 5 + [_p] * 8 + [ctypes.c_longlong] + [_p, _p, _p]
+    [_p] * 8 + [_i, _i] + [_d] * 5 + [_p] * 8 + [ctypes.c_longlong] + [_p, _p]
 )
 _SYMBOL = {torch.float32: "bocd_step_f32", torch.float64: "bocd_step_f64"}
 
 
 @functools.cache
-def _threads() -> int:
-    """Threads per block of the column passes (a constant of the library)."""
-    return _build.entry("bocd_step", "bocd_step_threads", [])()
+def _columns_per_block(k: int) -> int:
+    """Columns a block of the kernel takes per pass for K slots: the
+    row-maxima scratch holds K per block."""
+    return _build.entry("bocd_step", "bocd_step_columns_per_block", [ctypes.c_int])(k)
+
+
+@functools.cache
+def _max_slots(itemsize: int, index: int) -> int:
+    """The most slots the kernel takes on card ``index``: its shared memory
+    holds ten per-slot terms of ``itemsize`` bytes a slot."""
+    with torch.cuda.device(index):
+        return _build.entry("bocd_step", "bocd_step_max_slots", [ctypes.c_int])(itemsize)
 
 
 def bocd_step(
     x, log_r, mu, beta, kappa, alpha, rl, mu0,
     hazard, kappa0=1.0, alpha0=1.0, beta0=1.0, truncation=1e-6,
 ):
-    """One fused step: the CUDA kernel (three launches on the current
-    stream) for tensors on the card, :func:`bocd_step_reference` for tensors
-    on the CPU. Same arguments and results as the reference; ``x`` and
-    ``mu0`` are cast to the state's type as the reference does."""
+    """One fused step: the CUDA kernel (one cooperative launch on the
+    current stream) for tensors on the card, :func:`bocd_step_reference`
+    for tensors on the CPU. Same arguments and results as the reference;
+    ``x`` and ``mu0`` are cast to the state's type as the reference does.
+    On the card K is bounded only by the kernel's shared memory, which
+    holds ten per-slot terms (:func:`_max_slots`)."""
     if log_r.device.type == "cpu":
         return bocd_step_reference(
             x, log_r, mu, beta, kappa, alpha, rl, mu0,
@@ -209,7 +220,12 @@ def bocd_step(
     _check("alpha", alpha, (k, 1), dt, dev)
     _check("rl", rl, (k, 1), torch.int32, dev)
     fn = _build.entry("bocd_step", _SYMBOL[dt], _ARGTYPES)
-    nblk = -(-b // _threads())
+    if k > _max_slots(dt.itemsize, dev.index):
+        raise ValueError(
+            f"bocd_step: {k} slots do not fit the shared memory of {dev} "
+            f"(at most {_max_slots(dt.itemsize, dev.index)} in {dt})"
+        )
+    nblk = -(-b // _columns_per_block(k))   # at most this many blocks
     log_r_out = torch.empty((k, b), dtype=dt, device=dev)
     mu_out = torch.empty((k, b), dtype=dt, device=dev)
     beta_out = torch.empty((k, b), dtype=dt, device=dev)
@@ -219,7 +235,6 @@ def bocd_step(
     p0 = torch.empty((1, b), dtype=dt, device=dev)
     partial = torch.empty((nblk, k), dtype=dt, device=dev)   # scratch
     cp_norm = torch.empty((b,), dtype=dt, device=dev)        # scratch
-    victim = torch.empty((1,), dtype=torch.int32, device=dev)  # scratch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -229,15 +244,15 @@ def bocd_step(
             float(truncation), log_r_out.data_ptr(), mu_out.data_ptr(),
             beta_out.data_ptr(), kappa_out.data_ptr(), alpha_out.data_ptr(),
             rl_out.data_ptr(), p0.data_ptr(), partial.data_ptr(),
-            partial.numel(), cp_norm.data_ptr(), victim.data_ptr(), stream,
+            partial.numel(), cp_norm.data_ptr(), stream,
         )
     _build.check("bocd_step", err)
     bocd_step.launches += 1
     return log_r_out, mu_out, beta_out, kappa_out, alpha_out, rl_out, p0
 
 
-#: fused steps launched through :func:`bocd_step` (each is three CUDA
-#: launches on one stream; CPU calls are not counted)
+#: fused steps launched through :func:`bocd_step` (each is one CUDA kernel;
+#: CPU calls are not counted)
 bocd_step.launches = 0
 
 

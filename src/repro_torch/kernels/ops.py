@@ -6,10 +6,10 @@ sized Pallas blocks for the TPU's VMEM and 128 x 128 matrix unit, and
 ``interpret`` ran the Pallas program in Python on the CPU. Here each CUDA
 kernel fixes its own tiling (128 query rows by 128 keys for bf16
 attention, 64 by 64 for float32; about 128 cache positions per split, at
-most 8 splits, for decode; 32 state rows per block for the SSD scan,
-whose ``chunk`` stays an argument because it changes the result's
-rounding), and a tensor on the CPU takes the kernel's plain PyTorch
-version.
+most 8 splits, for decode; for the SSD scan, 64 state rows per block of
+the bf16 chunk-parallel kernels and 32 in float32, with ``chunk`` kept as
+an argument because it changes the result's rounding), and a tensor on the
+CPU takes the kernel's plain PyTorch version.
 """
 from __future__ import annotations
 

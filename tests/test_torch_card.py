@@ -75,6 +75,110 @@ def test_bocd_step_wrapper_rejects_bad_inputs(card):
         bk.bocd_step(*args[:2], strided, *args[3:])
     with pytest.raises(ValueError, match="is on"):
         bk.bocd_step(*args[:5], det._kappa.cpu(), *args[6:])
+    k = bk._max_slots(4, card.index or 0) + 1   # more slots than shared memory holds
+    big = bk.TorchBOCD(8, max_hypotheses=k, device=card, dtype=torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        bk.bocd_step(args[0], big._log_r, big._mu, big._beta, big._kappa, big._alpha,
+                     big._rl, big._mu0, 0.01)
+
+
+BOCD_EDGE_CASES = ["dead slot", "tie, smallest run length", "tie, smallest slot",
+                   "NaN stream"]
+
+
+def _bocd_edge_state(card, dtype, b, case):
+    """A (K = 8, B) state for one victim rule, and the victim it must pick
+    (None: whatever the reference picks)."""
+    k = 8
+    rng = np.random.default_rng(3)
+    w = rng.uniform(0.2, 1.0, (k, b))
+    log_r = np.log(w / w.sum(0))
+    mu = rng.normal(0.0, 1.0, (k, b))
+    beta = rng.uniform(0.5, 2.0, (k, b))
+    rl = np.array([[3], [1], [1], [5], [4], [2], [6], [0]])
+    x = rng.normal(0.0, 1.0, b)
+    expect = None
+    if case == "dead slot":            # an all -inf row is recycled first
+        log_r[6] = -np.inf
+        expect = 6
+    elif case.startswith("tie"):       # equal weakest rows: the same strength
+        tied = (1, 2, 7) if case == "tie, smallest run length" else (1, 2)
+        for s in tied:
+            log_r[s], mu[s], beta[s] = np.log(1e-3), mu[1], beta[1]
+        expect = 7 if len(tied) == 3 else 1
+    else:
+        x[min(7, b - 1)] = np.nan
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=card)  # noqa: E731
+    state = (t(log_r), t(mu), t(beta), t(np.full((k, 1), 3.0)), t(np.full((k, 1), 2.0)),
+             t(rl, torch.int32))
+    return t(x), state, t(rng.normal(0.0, 1.0, b)), expect
+
+
+@pytest.mark.parametrize("case", BOCD_EDGE_CASES)
+# 1,000: not a multiple of the columns a block takes a pass (128 at K = 8,
+# bocd_step_columns_per_block).
+@pytest.mark.parametrize("b", [1, 1000])
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float64, 1e-12, 1e-12), (torch.float32, 1e-5, 1e-6),
+])
+def test_bocd_step_victim_rules_and_edges(card, dtype, rtol, atol, b, case):
+    x, state, mu0, expect = _bocd_edge_state(card, dtype, b, case)
+    got = bk.bocd_step(x, *state, mu0, 0.01)
+    want = bk.bocd_step_reference(x, *state, mu0, 0.01)
+    log_trunc = float(torch.log(torch.tensor(1e-6, dtype=dtype)))
+    for g, w in zip(got, want, strict=True):
+        _close_or_truncation_flip(g, w, rtol, atol, log_trunc)
+    victim = int(torch.nonzero(got[5][:, 0] == 0)[0, 0])
+    assert victim == int(torch.nonzero(want[5][:, 0] == 0)[0, 0])
+    if expect is not None:
+        assert victim == expect
+    if case == "NaN stream":
+        col = min(7, b - 1)
+        assert bool(torch.isnan(got[0][:, col]).all())
+        if b > 1:
+            assert not bool(torch.isnan(got[0][:, col - 1]).any())
+
+
+@pytest.mark.parametrize("k,b", [
+    (129, 1000),     # one row past the 128 a column's threads hold at a time
+    (200, 1000),
+    (256, 16384),    # FleetDetect's adaptive cap at its upper bound
+    (700, 300),      # more slots than a block has threads; shared-memory opt-in
+])
+@pytest.mark.parametrize("dtype,rtol,atol", [
+    (torch.float64, 1e-12, 1e-12), (torch.float32, 1e-5, 1e-6),
+])
+def test_bocd_step_kernel_takes_any_slot_count(card, dtype, rtol, atol, k, b):
+    """Every slot live (random posteriors), so the victim pick and the
+    row-order sums run over all K rows."""
+    rng = np.random.default_rng(k)
+    w = rng.uniform(0.2, 1.0, (k, b))
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=card)  # noqa: E731
+    state = (t(np.log(w / w.sum(0))), t(rng.normal(0.0, 1.0, (k, b))),
+             t(rng.uniform(0.5, 2.0, (k, b))), t(rng.uniform(1.0, 5.0, (k, 1))),
+             t(rng.uniform(1.0, 3.0, (k, 1))), t(rng.permutation(k)[:, None], torch.int32))
+    mu0 = t(rng.normal(0.0, 1.0, b))
+    log_trunc = float(torch.log(torch.tensor(1e-6, dtype=dtype)))
+    for tick in range(4):
+        x = rng.normal(0.0, 1.0, b)
+        if tick == 2:
+            x[b // 2] = np.nan   # one stream goes NaN
+        got = bk.bocd_step(t(x), *state, mu0, 0.01)
+        want = bk.bocd_step_reference(t(x), *state, mu0, 0.01)
+        for g, w in zip(got, want, strict=True):
+            _close_or_truncation_flip(g, w, rtol, atol, log_trunc)
+        assert torch.equal(got[5], want[5])   # the same victim
+        state = want[:6]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 16384])
+def test_bocd_step_is_one_kernel_per_call(card, dtype, b):
+    x = np.random.default_rng(5).normal(0.0, 1.0, (2, b))
+    det = bk.TorchBOCD(b, mu0=x[0], max_hypotheses=32, device=card, dtype=dtype)
+    state = (det._log_r, det._mu, det._beta, det._kappa, det._alpha, det._rl)
+    xt = torch.as_tensor(x[1], dtype=dtype, device=card)
+    _assert_one_kernel_per_call(lambda: bk.bocd_step(xt, *state, det._mu0, 0.01), "bocd_kernel")
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 2), (8, 160, 8)])
@@ -95,17 +199,26 @@ def test_cell_reduce_kernel_matches_plain_version(card, shape):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
 
 
-def test_fleet_screen_on_card_flags_like_numpy(card):
+# adapt_every = 10 retunes max_hypotheses from the flag rate: on this quiet
+# fleet the cap reaches cap_bounds[1] = 256 at the first retune, above the
+# 128 slots whose rows the kernel keeps in registers.
+@pytest.mark.parametrize("adapt_every", [0, 10])
+def test_fleet_screen_on_card_flags_like_numpy(card, adapt_every):
     rng = np.random.default_rng(11)
     b, t_max = 512, 80
     x = rng.normal(1.0, 0.01, (t_max, b))
     x[40:, [3, 17, 40, 300]] *= 1.35
     flags = {}
     for name in ("batched", "cuda"):
-        fleet = FleetDetect(n_workers=b, backend=name)
-        flags[name] = sorted(
-            (t, f.worker) for t in range(t_max) for f in fleet.tick(x[t])
-        )
+        fleet = FleetDetect(n_workers=b, backend=name, adapt_every=adapt_every)
+        found = []
+        for t in range(t_max):
+            if t == 20:
+                cap, before = fleet.max_hypotheses, bk.bocd_step.launches
+            found += [(t, f.worker) for f in fleet.tick(x[t])]
+        flags[name] = sorted(found)
+    assert cap == (256 if adapt_every else 32)
+    assert bk.bocd_step.launches > before   # the kernel ran at that cap
     assert flags["cuda"] == flags["batched"]
     assert {w for _, w in flags["batched"]} == {3, 17, 40, 300}
 
@@ -247,17 +360,30 @@ def test_flash_decode_valid_len_sweep(card, dtype, hd):
     assert bool(got[1:].float().abs().amax(dim=(1, 2)).gt(0).all())
 
 
-def _cuda_kernels(fn):
-    """Names of the CUDA kernels one call of ``fn`` ran, from torch.profiler."""
+def _cuda_kernels(fn, calls=1):
+    """Names of the CUDA kernels that ``calls`` calls of ``fn`` ran, from
+    torch.profiler. Sleep kernels bracket the calls and are left out of the
+    names: the profiler can miss a kernel of a trace, most often the first."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()   # built and bound before the traced call
+    fn()   # built and bound before the traced calls
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name]
+
+
+def _assert_one_kernel_per_call(fn, part):
+    """Three traced calls run three kernels named with ``part`` (two when
+    the profiler misses one) and nothing else."""
+    names = _cuda_kernels(fn, calls=3)
+    assert len(names) in (2, 3) and all(part in n for n in names), names
 
 
 @pytest.mark.parametrize("valid", ["int", "tensor"])
@@ -266,8 +392,7 @@ def test_flash_decode_is_one_kernel_per_call(card, valid):
     k = _normal(card, 51, (8, 1088, 8, 128), torch.bfloat16)
     v = _normal(card, 52, (8, 1088, 8, 128), torch.bfloat16)
     lens = 1088 if valid == "int" else torch.full((8,), 1088, dtype=torch.int32, device=card)
-    names = _cuda_kernels(lambda: fd.flash_decode(q, k, v, lens))
-    assert len(names) == 1 and "decode_kernel" in names[0], names
+    _assert_one_kernel_per_call(lambda: fd.flash_decode(q, k, v, lens), "decode_kernel")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -275,8 +400,7 @@ def test_flash_attention_is_one_kernel_per_call(card, dtype):
     q = _normal(card, 53, (1, 512, 32, 128), dtype)
     k = _normal(card, 54, (1, 512, 8, 128), dtype)
     v = _normal(card, 55, (1, 512, 8, 128), dtype)
-    names = _cuda_kernels(lambda: fa.flash_attention(q, k, v, causal=True))
-    assert len(names) == 1 and "attention" in names[0], names
+    _assert_one_kernel_per_call(lambda: fa.flash_attention(q, k, v, causal=True), "attention")
 
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -322,20 +446,27 @@ def test_decode_and_forward_kernel_routes_match_plain_routes(card, arch):
 # float32 differs in summation order, bfloat16 also in where y is rounded.
 SSD_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
            torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
-SSD_CASES = [   # b, s, h, p, g, n, chunk
-    (1, 64, 2, 32, 1, 16, 16),
-    (2, 128, 4, 64, 2, 32, 32),      # two groups
-    (1, 96, 2, 16, 1, 8, 32),        # three chunks, P below a block's 32
-    (1, 4096, 80, 64, 1, 128, 128),  # mamba2-2.7b's forward shape
+SSD_CASES = [   # b, s, h, p, g, n, chunk, dt scale
+    (1, 64, 2, 32, 1, 16, 16, 0.5),
+    (2, 128, 4, 64, 2, 32, 32, 0.5),      # two groups
+    (1, 96, 2, 16, 1, 8, 32, 0.5),        # three chunks, P below a block's 32
+    (1, 4096, 80, 64, 1, 128, 128, 0.5),  # mamba2-2.7b's forward shape
+    # dt 100x smaller: the state decays by ~e^-0.5 a chunk and reaches all
+    # 32 chunks (the reference's dt forgets it within one chunk)
+    (1, 4096, 80, 64, 1, 128, 128, 0.005),
 ]
+# Each bf16 row of y (the P values of one (b, t, h)) to a relative L2 error:
+# sound rows read a few 1e-3, a scan that drops the state entering a chunk
+# reads far above (chip_smoke.py, phase 3).
+SSD_ROW_REL = 2e-2
 
 
 def _ssd_inputs(card, shape, dtype, seed=20):
-    b, s, h, p, g, n, _ = shape
+    b, s, h, p, g, n, _, dt_scale = shape
     rng = np.random.default_rng(seed)
     x = torch.as_tensor(rng.normal(size=(b, s, h, p)), dtype=torch.float32, device=card)
     dt = torch.nn.functional.softplus(torch.as_tensor(
-        rng.normal(size=(b, s, h)), dtype=torch.float32, device=card)) * 0.5
+        rng.normal(size=(b, s, h)), dtype=torch.float32, device=card)) * dt_scale
     a = -torch.exp(torch.as_tensor(rng.normal(size=(h,)), dtype=torch.float32,
                                    device=card) * 0.2)
     bm = torch.as_tensor(rng.normal(size=(b, s, g, n)), dtype=torch.float32, device=card)
@@ -350,7 +481,7 @@ def test_ssd_scan_kernel_matches_plain_version(card, dtype, shape):
 
     x, dt, a, bm, cm = _ssd_inputs(card, shape, dtype)
     before = sk.ssd_scan.launches
-    y, st = sk.ssd_scan(x, dt, a, bm, cm, chunk=shape[-1])
+    y, st = sk.ssd_scan(x, dt, a, bm, cm, chunk=shape[6])
     y_r, st_r = sk.ssd_scan_reference(x, dt, a, bm, cm)
     torch.cuda.synchronize()
     assert sk.ssd_scan.launches == before + 1
@@ -359,13 +490,34 @@ def test_ssd_scan_kernel_matches_plain_version(card, dtype, shape):
     for got, want in ((y, y_r), (st, st_r)):
         np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                    **SSD_TOL[dtype])
+    if dtype == torch.bfloat16:
+        g = y.double().reshape(-1, y.shape[-1])
+        w = y_r.double().reshape(-1, y.shape[-1])
+        assert float(((g - w).norm(dim=1) / w.norm(dim=1)).max()) <= SSD_ROW_REL
+
+
+def test_ssd_scan_bf16_runs_the_three_kernels_of_its_design(card):
+    """One bf16 call from the model (dt in bf16) runs the library's chunk
+    states, state passing and outputs kernels, and nothing else: no cast,
+    no cuBLAS."""
+    from repro_torch.kernels import ssd_scan as sk
+
+    x, dt, a, bm, cm = _ssd_inputs(card, SSD_CASES[3], torch.bfloat16)
+    dt = dt.to(torch.bfloat16)
+    design = ["ssd_chunk_state", "ssd_state_pass", "ssd_chunk_output"]
+    # Three calls traced: the design's sequence three times, or with one
+    # launch that the profiler missed.
+    names = _cuda_kernels(lambda: sk.ssd_scan(x, dt, a, bm, cm, chunk=128), calls=3)
+    short = [n.replace("(anonymous namespace)::", "").split("(")[0].split()[-1] for n in names]
+    seq = design * 3
+    assert short == seq or any(short == seq[:i] + seq[i + 1:] for i in range(9)), names
 
 
 def test_ssd_scan_kernel_reads_strided_b_and_c(card):
     """B and C as the model makes them: two halves of one projection."""
     from repro_torch.kernels import ssd_scan as sk
 
-    x, dt, a, bm, cm = _ssd_inputs(card, (2, 64, 4, 32, 2, 16, 32), torch.bfloat16, 3)
+    x, dt, a, bm, cm = _ssd_inputs(card, (2, 64, 4, 32, 2, 16, 32, 0.5), torch.bfloat16, 3)
     bc = torch.cat([bm, cm], dim=-1)
     b_view, c_view = torch.split(bc, bm.shape[-1], dim=-1)
     assert not b_view.is_contiguous()

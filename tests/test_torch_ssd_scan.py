@@ -6,6 +6,8 @@ numpy inputs.
   in interpret mode, on the three shapes of ``tests/test_kernels.py``, in
   float32 and bfloat16;
 * the chunked ``models.ssm.ssd_scan`` (also from an initial state);
+* both, and the Pallas kernel, on inputs whose dt is 100x smaller, which
+  carry the state through every chunk;
 * ``apply_mamba`` with ``use_kernel`` (the kernel's plain version on the
   CPU) against the reference's in interpret mode, and without;
 * the mamba2-2.7b smoke forward, prefill and decode, on the reference's
@@ -56,13 +58,14 @@ def f32(x):
     return np.asarray(x.detach().float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
-def inputs(shape, dtype, seed=20):
+def inputs(shape, dtype, seed=20, dt_scale=0.5):
     """(jax arrays, torch tensors) of x, dt, a, B, C: x, B and C in
-    ``dtype``, dt and a float32, as the reference's kernel tests make them."""
+    ``dtype``, dt and a float32, as the reference's kernel tests make them
+    (dt = softplus(normal) * dt_scale, their 0.5 by default)."""
     b, s, h, p, g, n, _ = shape
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, s, h, p)).astype(np.float32)
-    dt = (np.log1p(np.exp(rng.normal(size=(b, s, h)))) * 0.5).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.normal(size=(b, s, h)))) * dt_scale).astype(np.float32)
     a = (-np.exp(rng.normal(size=(h,)) * 0.2)).astype(np.float32)
     bm = rng.normal(size=(b, s, g, n)).astype(np.float32)
     cm = rng.normal(size=(b, s, g, n)).astype(np.float32)
@@ -109,6 +112,32 @@ def test_chunked_ssd_matches_jax(shape, dtype):
     y_t, st_t = tssm.ssd_scan(*t, chunk=chunk, initial_state=init_t)
     np.testing.assert_allclose(f32(y_t), f32(y_j), **SCAN_TOL[dtype])
     np.testing.assert_allclose(f32(st_t), f32(st_j), **SCAN_TOL[dtype])
+
+
+# dt 100x smaller than the reference's: a 32-step chunk decays the state by
+# ~e^-0.1, so it reaches all 8 chunks (the reference's dt forgets it within
+# one chunk, and no check on those inputs sees the recurrence across chunks).
+LONG_MEMORY = (1, 256, 2, 16, 1, 8, 32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_memory_inputs_match_jax_across_chunks(dtype):
+    j, t = inputs(LONG_MEMORY, dtype, seed=33, dt_scale=0.005)
+    chunk = LONG_MEMORY[-1]
+    y_t, st_t = tref.ssd_ref(*t)
+    for y_j, st_j in (jref.ssd_ref(*j), jops.ssd_scan(*j, chunk=chunk, interpret=True),
+                      jssm.ssd_scan(*j, chunk=chunk)):
+        np.testing.assert_allclose(f32(y_t), f32(y_j), **SCAN_TOL[dtype])
+        np.testing.assert_allclose(f32(st_t), f32(st_j), **SCAN_TOL[dtype])
+    y_c, st_c = tssm.ssd_scan(*t, chunk=chunk)
+    np.testing.assert_allclose(f32(y_c), f32(y_t), **SCAN_TOL[dtype])
+    np.testing.assert_allclose(f32(st_c), f32(st_t), **SCAN_TOL[dtype])
+    # The inputs carry the state: the last chunk without the state entering
+    # it is far from the scan's.
+    last = [v[:, -chunk:] if v.dim() > 1 else v for v in t]
+    y_cut, _ = tssm.ssd_scan(*last, chunk=chunk)
+    err = np.linalg.norm(f32(y_cut) - f32(y_t)[:, -chunk:]) / np.linalg.norm(f32(y_t)[:, -chunk:])
+    assert err > 0.1
 
 
 def test_chunked_ssd_continues_from_its_own_final_state():
