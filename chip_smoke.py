@@ -16,7 +16,10 @@ order:
 3. kernel vs plain version on the card: ``bocd_step`` at K = 32,
    B = 16,384, 1 and 1,000, and at K = 256 (FleetDetect's adaptive cap),
    B = 16,384 and 1,000, over 60 ticks (a step change and a NaN column) and
-   ``cell_reduce`` at (8, 160, 8) and (2, 2, 2), in float32 and float64;
+   ``cell_reduce`` at (8, 160, 8), (2, 2, 2), (16, 128, 8) and
+   (16, 1024, 8), in float32 and float64, through both entries (the packed
+   one on float64 cells equal bit for bit to the kernel on copies of the
+   arithmetic type), and with one NaN TP edge;
    ``flash_decode`` (GQA rep 4, MQA, per-sequence lengths, valid_len 1 and
    0, a cache length off the split grid) and ``flash_attention`` (causal,
    non-causal, a window, a ragged Sq) in float32 and bfloat16; ``ssd_scan``
@@ -50,6 +53,11 @@ order:
    that call, at the paths' shapes, beside the bound, with its rate and its
    ratios to that call and to the bound; the CUDA kernels of one
    ``bocd_step`` call (torch.profiler), its time held to BOCD_GATE_MS;
+   ``cell_reduce`` on the packed float64 cells at (8, 160, 8) (held to
+   CELL_GATE_MS) and (16, 128, 8) beside an empty launch, and one simulator
+   evaluation with the host included, the packed route (one upload, one
+   launch, one download) against the unpacked one in turns, held to
+   EVAL_RATIO;
 9. parity at the published width, kernel route against plain route:
    teacher-forced decode on the same caches and the 4,096-token forward;
    bf16 differences reported, float32 (weights upcast exactly) held to a
@@ -101,6 +109,18 @@ TOL = {"float64": (1e-12, 1e-12), "float32": (1e-5, 1e-6)}  # (rtol, atol)
 # pipeline over a 10,240-device job (the documented 10k-device run).
 FLEET_WORKERS, FLEET_TICKS = 16384, 200
 PIPELINE_TICKS = 400
+
+# cell_reduce: the pipeline's (pp, dp, tp); (2, 2, 2); the Llama 3 405B
+# pretraining layout (16,384 GPUs, TP 8, PP 16, DP 128; arXiv:2407.21783,
+# Table 4; 288 KB of float64 cells); and the same at DP 1,024, whose blocks
+# take their 128 dp columns in several passes.
+# Gates: the kernel's device median at (8, 160, 8) on the packed float64
+# cells, and one evaluation with the host included, packed route against
+# the unpacked one (five float32 copies, the kernel, cat, .cpu()) in turns.
+CELL_SHAPES = ((8, 160, 8), (2, 2, 2), (16, 128, 8), (16, 1024, 8))
+CELL_GATE_MS = 0.007
+CELL_EARLIER_MS = 0.0139   # the first, one-block design of the kernel, (8, 160, 8) float32
+EVAL_RATIO, EVAL_RUNS = 0.5, 60
 
 # Slice 2's paths: granite-3-8b at its published width (40 layers, d_model
 # 4096, 32 heads / 8 KV heads of 128), 8 requests x (1,024 prompt + 64
@@ -291,7 +311,8 @@ def _bocd_init(torch, np, x0, k, dtype, dev):
 
 def phase_kernels(torch, np):
     from repro_torch.kernels.bocd_step import bocd_step, bocd_step_reference
-    from repro_torch.kernels.cell_reduce import cell_reduce, cell_reduce_reference
+    from repro_torch.kernels.cell_reduce import (
+        blocks_of, cell_reduce, cell_reduce_packed, cell_reduce_reference, out_size, split_out)
 
     dev = torch.device("cuda")
     hazard, trunc = 1.0 / 100.0, 1e-6
@@ -331,25 +352,52 @@ def phase_kernels(torch, np):
             f"log_r {worst['log_r']:.3e} p0 {worst['p0']:.3e} mu {worst['mu']:.3e} "
             f"beta {worst['beta']:.3e}; truncation-boundary flips {flips}")
 
-    for shape in ((8, 160, 8), (2, 2, 2)):
+    for shape in CELL_SHAPES:
         arrays, consts, want64 = _cells_of(np, shape)
+        cells = _packed_cells(torch, np, arrays, shape)
         for dt_name in ("float32", "float64"):
             dt = getattr(torch, dt_name)
             ins = [torch.as_tensor(a).to(dev, dt) for a in arrays]
             got = cell_reduce(*ins, *consts)
+            out = torch.empty(out_size(*shape), dtype=dt, device=dev)
+            packed = split_out(cell_reduce_packed(cells, shape, *consts, out=out), shape)
             want = cell_reduce_reference(*ins, *consts)
             torch.cuda.synchronize()
             worst = 0.0
-            for n, g, w in zip(("t", "stage_max", "tp_bw", "dp_bw"), got, want):
+            for n, g, p, w in zip(("t", "stage_max", "tp_bw", "dp_bw"), got, packed, want):
                 e, _ = _compare(f"cell_reduce {dt_name} {shape} {n}", g, w, dt_name)
-                worst = max(worst, e)
+                ep, _ = _compare(f"cell_reduce packed {dt_name} {shape} {n}", p, w, dt_name)
+                need(bool(torch.equal(p, g)),
+                     f"cell_reduce {dt_name} {shape} {n}: the packed entry (float64 cells "
+                     f"rounded on load) differs from the kernel on {dt_name} copies")
+                worst = max(worst, e, ep)
             rel_sim = abs(float(got[0]) - want64) / want64
             need(rel_sim <= (1e-12 if dt_name == "float64" else 1e-5),
                  f"cell_reduce {dt_name} {shape}: t off the simulator's numpy "
                  f"result by {rel_sim:.3e}")
             errs[("cell_reduce", dt_name, shape)] = worst
             log(f"[3 kernels] cell_reduce {dt_name} pp,dp,tp={shape}: max abs err vs "
-                f"plain {worst:.3e}; t rel err vs numpy simulator {rel_sim:.3e}")
+                f"plain {worst:.3e} (both entries; packed = kernel on {dt_name} copies, "
+                f"bit for bit); t rel err vs numpy simulator {rel_sim:.3e}; "
+                f"(blocks, dp columns a block) = {blocks_of(shape[1])}")
+    # A NaN TP edge reaches that cell's tp_bw, its column's stage_max and t.
+    arrays, consts, _ = _cells_of(np, (8, 160, 8))
+    arrays = list(arrays)
+    arrays[1] = arrays[1].copy()
+    arrays[1][3, 17, 5] = np.nan
+    out = torch.empty(out_size(8, 160, 8), dtype=torch.float32, device=dev)
+    got = split_out(cell_reduce_packed(_packed_cells(torch, np, arrays, (8, 160, 8)),
+                                       (8, 160, 8), *consts, out=out), (8, 160, 8))
+    want = cell_reduce_reference(*(torch.as_tensor(a).to(dev, torch.float32) for a in arrays),
+                                 *consts)
+    for n, g, w in zip(("t", "stage_max", "tp_bw", "dp_bw"), got, want):
+        _compare(f"cell_reduce NaN case {n}", g, w, "float32")
+    need(bool(got[0].isnan().all()) and int(got[1].isnan().sum()) == 1
+         and bool(got[1][0, 17].isnan()) and int(got[2].isnan().sum()) == 1
+         and bool(got[2][3, 17].isnan()) and not bool(got[3].isnan().any()),
+         "cell_reduce: a NaN TP edge did not reach exactly its tp_bw, stage_max and t")
+    log("[3 kernels] cell_reduce float32 (8,160,8) with one NaN TP edge: NaN in its tp_bw, "
+        "its column's stage_max and t only, as the plain version")
     return errs
 
 
@@ -588,7 +636,7 @@ def _cells_of(np, shape):
         sim = _sim_10k("vectorized")
     else:
         sim = TrainingSimulator(
-            cluster=ClusterSpec(n_nodes=1),
+            cluster=ClusterSpec(n_nodes=-(-pp * dp * tp // 8)),
             job=JobSpec(model=ModelSpec(layers=8, hidden=1024, seq_len=1024,
                                         vocab=32000),
                         tp=tp, dp=dp, pp=pp, micro_batches=4 * dp),
@@ -604,6 +652,15 @@ def _cells_of(np, shape):
     arrays = (c.cell_speed, c.tp_edge, c.dp_edge, c.hop_bw, sim._alloc_off())
     consts = (c.c_flops, c.c_speed, c.c_tp, c.pp_vol, c.c_dp)
     return arrays, consts, want64
+
+
+def _packed_cells(torch, np, arrays, shape):
+    """The five float64 cell arrays in one packed buffer on the card."""
+    from repro_torch.kernels.cell_reduce import pack_cells, packed_layout
+
+    buf = np.zeros(packed_layout(*shape)[1])
+    pack_cells(buf, arrays, shape)
+    return torch.as_tensor(buf).to("cuda")
 
 
 # ------------------------------------------------------- phases 4 and 5
@@ -1013,7 +1070,6 @@ def _device_ms(torch, fn, runs=100, chunk=10, warmup=5):
 
 def phase_times(torch, np, card, errs, launches):
     from repro_torch.kernels.bocd_step import bocd_step, bocd_step_reference
-    from repro_torch.kernels.cell_reduce import cell_reduce, cell_reduce_reference
 
     dev = torch.device("cuda")
     out = []
@@ -1064,34 +1120,87 @@ def phase_times(torch, np, card, errs, launches):
         log(f"[8 times] bocd_step f32 K=256 B={xs.shape[1]}: kernel {ms256:.4f} ms, plain "
             f"{plain256:.4f} ms (device, median of >=100); per call with host "
             f"{call256:.4f} ms; card: {card}")
-    # cell_reduce at the 10,240-device job, float32.
-    arrays, consts, _ = _cells_of(np, (8, 160, 8))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        ins = [torch.as_tensor(a).to(dev, torch.float32) for a in arrays]
-    torch.cuda.synchronize()
-    copy_ms = (time.perf_counter() - t0) / 20 * 1e3
-    copy_bytes = sum(a.nbytes for a in arrays)
-    saved = cell_reduce.launches
-    ms, call_ms = _device_ms(torch, lambda: cell_reduce(*ins, *consts))
-    plain_ms, plain_call_ms = _device_ms(torch, lambda: cell_reduce_reference(*ins, *consts))
-    cell_reduce.launches = saved
-    pp, dp, tp = 8, 160, 8
-    n_in = pp * dp + 2 * pp * dp * tp + (pp - 1) * dp + dp
-    n_out = 1 + dp + pp * dp + pp * tp
-    nbytes = 4 * (n_in + n_out)
-    flops = 2 * pp * dp * tp + 4 * pp * dp + 2 * (pp - 1) * dp + 3 * dp
-    out.append(_row("cell_reduce", "src/repro_torch/kernels/csrc/cell_reduce.cu",
-                    "src/repro/kernels/cell_reduce.py:87", launches["cell_reduce"],
-                    errs[("cell_reduce", "float32", (8, 160, 8))], ms, plain_ms,
-                    nbytes, flops))
-    log(f"[8 times] cell_reduce f32 pp,dp,tp=(8,160,8): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms (device, median of >=100); per call with host "
-        f"{call_ms:.4f} / {plain_call_ms:.4f} ms; bound {out[-1]['bound_ms']:.6f} ms "
-        f"({out[-1]['bound_by']}); host-to-device copy of the cells "
-        f"({copy_bytes} B float64 in, cast to float32) {copy_ms:.4f} ms; card: {card}")
+    out += _times_cell_reduce(torch, np, card, errs, launches)
     return out
+
+
+def _times_cell_reduce(torch, np, card, errs, launches):
+    """cell_reduce's device times (float32 arithmetic on the packed float64
+    cells) at the 10,240-device job and at (16, 128, 8), beside the empty
+    launch and the bound; then one evaluation with the host included, the
+    packed route against the unpacked one in turns. Holds CELL_GATE_MS and
+    EVAL_RATIO."""
+    from repro_torch.cluster.simulator import CudaReduction
+    from repro_torch.kernels.cell_reduce import (
+        blocks_of, cell_reduce, cell_reduce_packed, cell_reduce_packed_reference, empty_launch,
+        out_size)
+
+    dev = torch.device("cuda")
+    saved = cell_reduce.launches
+    floor_ms, _ = _device_ms(torch, lambda: empty_launch(dev))
+    rows = {}
+    for shape in ((8, 160, 8), (16, 128, 8)):
+        arrays, consts, _ = _cells_of(np, shape)
+        cells = _packed_cells(torch, np, arrays, shape)
+        res = torch.empty(out_size(*shape), dtype=torch.float32, device=dev)
+        ins = [torch.as_tensor(a).to(dev, torch.float32) for a in arrays]
+        ms, call_ms = _device_ms(torch, lambda: cell_reduce_packed(cells, shape, *consts, out=res))
+        plain_ms, _ = _device_ms(
+            torch, lambda: cell_reduce_packed_reference(cells, shape, *consts, out=res))
+        f32_ms, _ = _device_ms(torch, lambda: cell_reduce(*ins, *consts))
+        pp, dp, tp = shape
+        n_in = pp * dp + 2 * pp * dp * tp + (pp - 1) * dp + dp
+        n_out = out_size(*shape)
+        nbytes = 8 * n_in + 4 * n_out      # float64 cells in, float32 results out
+        flops = 2 * pp * dp * tp + 4 * pp * dp + 2 * (pp - 1) * dp + 3 * dp
+        row = _row("cell_reduce", "src/repro_torch/kernels/csrc/cell_reduce.cu",
+                   "src/repro/kernels/cell_reduce.py:87", launches["cell_reduce"],
+                   errs[("cell_reduce", "float32", shape)], ms, plain_ms, nbytes, flops)
+        rows[shape] = row
+        log(f"[8 times] cell_reduce f32 on packed f64 cells pp,dp,tp={shape} "
+            f"({nbytes} B; (blocks, dp columns a block) = {blocks_of(dp)}): kernel {ms:.4f} "
+            f"ms (earlier design {CELL_EARLIER_MS} ms at (8,160,8)); "
+            f"on float32 copies {f32_ms:.4f} ms; plain {plain_ms:.4f} ms (device, median of "
+            f">=100); per call with host {call_ms:.4f} ms; empty launch of one "
+            f"512-thread block {floor_ms:.4f} ms; bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}); limit {CELL_GATE_MS} ms at (8,160,8); card: {card}")
+    ms = rows[(8, 160, 8)]["ms"]
+    need(ms <= CELL_GATE_MS, f"cell_reduce f32 (8,160,8) takes {ms:.4f} ms, above "
+         f"{CELL_GATE_MS} ms")
+
+    # One evaluation on a new memo key, host included: the packed route
+    # (CudaReduction) against five float32 copies, the kernel, cat, .cpu().
+    arrays, consts, _ = _cells_of(np, (8, 160, 8))
+    rb = CudaReduction(dev)
+
+    def packed():
+        return rb.evaluate(arrays, consts, (8, 160, 8))
+
+    def unpacked():
+        ins = [torch.as_tensor(a).to(dev, torch.float32) for a in arrays]
+        res = cell_reduce(*ins, *consts)
+        return torch.cat([r.reshape(-1) for r in res]).to(torch.float64).cpu().numpy()
+
+    need(bool(np.array_equal(packed(), unpacked())),
+         "cell_reduce: the packed evaluation differs from the unpacked float32 route")
+    times = {packed: [], unpacked: []}
+    for _ in range(5):
+        packed(), unpacked()
+    for i in range(EVAL_RUNS):
+        for fn in ((packed, unpacked) if i % 2 == 0 else (unpacked, packed)):
+            t0 = time.perf_counter()
+            fn()
+            times[fn].append((time.perf_counter() - t0) * 1e3)
+    cell_reduce.launches = saved
+    p_ms, u_ms = statistics.median(times[packed]), statistics.median(times[unpacked])
+    log(f"[8 times] cell_reduce evaluation at 10,240 devices, host included (median of "
+        f"{EVAL_RUNS} each, in turns): packed {p_ms:.4f} ms (one upload of "
+        f"{rb.copy_bytes // rb.copies} B, one launch, one download, one sync), unpacked "
+        f"{u_ms:.4f} ms (five float32 copies, kernel, cat, .cpu()); ratio {p_ms / u_ms:.3f}, "
+        f"limit {EVAL_RATIO}; bit-equal results; card: {card}")
+    need(p_ms <= EVAL_RATIO * u_ms, f"the packed evaluation ({p_ms:.4f} ms) is not at most "
+         f"{EVAL_RATIO} x the unpacked one ({u_ms:.4f} ms)")
+    return [rows[(8, 160, 8)]]
 
 
 def _row(name, source, replaces, launches, err, ms, plain_ms, nbytes, flops,

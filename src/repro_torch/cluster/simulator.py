@@ -56,7 +56,13 @@ import torch
 
 from repro_torch.core.events import CommEvent, CommOp
 from repro_torch.device import resolve_device
-from repro_torch.kernels.cell_reduce import cell_reduce, cell_reduce_reference
+from repro_torch.kernels.cell_reduce import (
+    cell_reduce_packed,
+    cell_reduce_packed_reference,
+    out_size,
+    pack_cells,
+    packed_layout,
+)
 from repro_torch.core.topology import HybridTopology
 from repro_torch.cluster.spec import ClusterSpec, ClusterState, DirtySet, ModelSpec
 from repro_torch.obs.collectives import CollectiveBreakdown, decompose, timing_decomposition
@@ -1330,15 +1336,19 @@ class VectorizedReduction:
 
 class TorchReduction:
     """The reduction tree's plain PyTorch version
-    (:func:`repro_torch.kernels.cell_reduce.cell_reduce_reference`) on
-    ``device`` (None = the card), one call per evaluation, memoized on the
-    simulator's config/state versions.
+    (:func:`repro_torch.kernels.cell_reduce.cell_reduce_packed_reference`)
+    on ``device`` (None = the card), one call per evaluation, memoized on
+    the simulator's config/state versions.
 
     Measurement (and its event-scoped incremental maintenance) stays on the
-    numpy side; the cell arrays are copied to the device once per memo key
-    (``copies`` / ``copy_bytes`` count that traffic). Topologies with tp,
-    dp or pp equal to 1 take the reference's own numpy path. Runs in
-    float64, where the result matches the loop oracle to rounding.
+    numpy side. Each evaluation packs the five cell arrays into one host
+    buffer (pinned on the card), makes one upload to a device buffer, one
+    reduction into one packed output and one download with one
+    synchronisation; the four buffers are allocated once per topology.
+    ``copies`` / ``copy_bytes`` count the uploads and their bytes.
+    Topologies with tp, dp or pp equal to 1 take the reference's own numpy
+    path. Runs in float64, where the result matches the loop oracle to
+    rounding.
     """
 
     name = "torch"
@@ -1349,8 +1359,39 @@ class TorchReduction:
         self.device = resolve_device(device)
         self.copies = 0
         self.copy_bytes = 0
+        self._shape = None
 
-    _reduce = staticmethod(cell_reduce_reference)
+    _reduce = staticmethod(cell_reduce_packed_reference)
+
+    def _buffers(self, shape) -> None:
+        """The packed buffers of topology ``shape`` = (pp, dp, tp)."""
+        if self._shape == shape:
+            return
+        n_in = packed_layout(*shape)[1]
+        n_out = out_size(*shape)
+        pin = self.device.type == "cuda"
+        self._host_in = torch.zeros(n_in, dtype=torch.float64, pin_memory=pin)
+        self._host_in_np = self._host_in.numpy()
+        self._dev_in = torch.zeros(n_in, dtype=torch.float64, device=self.device)
+        self._dev_out = torch.empty(n_out, dtype=self.dtype, device=self.device)
+        self._host_out = torch.empty(n_out, dtype=self.dtype, pin_memory=pin)
+        self._shape = shape
+
+    def evaluate(self, arrays, consts, shape) -> np.ndarray:
+        """One evaluation of the five float64 cell arrays (cell_speed,
+        tp_edge, dp_edge, hop_bw, alloc_off) of topology ``shape`` with the
+        formula constants ``consts``: the packed results ``t, stage_max,
+        tp_bw, dp_bw`` as one float64 array."""
+        self._buffers(shape)
+        pack_cells(self._host_in_np, arrays, shape)
+        self._dev_in.copy_(self._host_in, non_blocking=True)
+        self.copies += 1
+        self.copy_bytes += self._host_in.nbytes
+        self._reduce(self._dev_in, shape, *consts, out=self._dev_out)
+        self._host_out.copy_(self._dev_out, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._host_out.numpy().astype(np.float64)
 
     def _outs(self, sim: TrainingSimulator):
         d = sim.__dict__
@@ -1361,23 +1402,12 @@ class TorchReduction:
         if c.tp_edge is None or c.dp_edge is None or c.hop_bw is None:
             out = None
         else:
-            host = (c.cell_speed, c.tp_edge, c.dp_edge, c.hop_bw,
-                    sim._alloc_off())
-            self.copies += 1
-            self.copy_bytes += sum(a.nbytes for a in host)
-            dev = [
-                torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
-                for a in host
-            ]
-            t, stage_max, tp_bw, dp_bw = self._reduce(
-                *dev, c.c_flops, c.c_speed, c.c_tp, c.pp_vol, c.c_dp,
-            )
-            # One device-to-host copy for all four results.
-            flat = torch.cat([
-                t.reshape(-1), stage_max.reshape(-1), tp_bw.reshape(-1),
-                dp_bw.reshape(-1),
-            ]).to(torch.float64).cpu().numpy()
             job = sim.job
+            flat = self.evaluate(
+                (c.cell_speed, c.tp_edge, c.dp_edge, c.hop_bw, sim._alloc_off()),
+                (c.c_flops, c.c_speed, c.c_tp, c.pp_vol, c.c_dp),
+                (job.pp, job.dp, job.tp),
+            )
             n_tp = job.pp * job.dp
             out = (
                 float(flat[0]),
@@ -1419,16 +1449,18 @@ class TorchReduction:
 
 class CudaReduction(TorchReduction):
     """Fused-kernel backend: one launch of the hand-written CUDA kernel
-    (:func:`repro_torch.kernels.cell_reduce.cell_reduce`) per evaluation —
-    the twin of the reference's ``PallasReduction``. Runs in float32, the
-    accelerator's width; ``tolerance`` reflects float32 arithmetic against
-    the float64 oracle."""
+    (:func:`repro_torch.kernels.cell_reduce.cell_reduce_packed`) per
+    evaluation, between one upload of the packed float64 cells and one
+    download of the packed results — the twin of the reference's
+    ``PallasReduction``. Runs in float32, the accelerator's width (each cell
+    rounded on load); ``tolerance`` reflects float32 arithmetic against the
+    float64 oracle. On the CPU the packed entry runs its plain version."""
 
     name = "cuda"
     tolerance = 1e-4
     dtype = torch.float32
 
-    _reduce = staticmethod(cell_reduce)
+    _reduce = staticmethod(cell_reduce_packed)
 
 
 #: registry the equivalence tests enumerate; "numpy" mirrors the screening

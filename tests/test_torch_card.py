@@ -181,22 +181,83 @@ def test_bocd_step_is_one_kernel_per_call(card, dtype, b):
     _assert_one_kernel_per_call(lambda: bk.bocd_step(xt, *state, det._mu0, 0.01), "bocd_kernel")
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 2), (8, 160, 8)])
-def test_cell_reduce_kernel_matches_plain_version(card, shape):
+# The narrow kernel takes pp, tp <= 16; (20, 24, 4), (3, 5, 17) and (4, 12, 40)
+# take the general one (tp 40: rings in chunks of 32).
+CELL_SHAPES = [(2, 2, 2), (1, 3, 5), (3, 1, 2), (9, 9, 3), (8, 160, 8), (16, 128, 8),
+               (16, 1024, 8), (20, 24, 4), (3, 5, 17), (4, 12, 40)]
+CELL_CONSTS = (3.0, 2.0, 0.7, 1.3, 0.9)
+
+
+def _cell_arrays(shape, seed=2):
     pp, dp, tp = shape
-    rng = np.random.default_rng(2)
-    host = (rng.uniform(0.5, 1.0, (pp, dp)),
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.5, 1.0, (pp, dp)),
             rng.uniform(5.0, 40.0, (pp, dp, tp)),
             rng.uniform(5.0, 40.0, (pp, dp, tp)),
             rng.uniform(5.0, 40.0, (pp - 1, dp)),
             rng.uniform(1.0, 3.0, (dp,)))
-    consts = (3.0, 2.0, 0.7, 1.3, 0.9)
+
+
+def _cell_packed(card, host, shape, dtype):
+    buf = np.zeros(ck.packed_layout(*shape)[1])
+    ck.pack_cells(buf, host, shape)
+    out = torch.empty(ck.out_size(*shape), dtype=dtype, device=card)
+    ck.cell_reduce_packed(torch.as_tensor(buf, device=card), shape, *CELL_CONSTS, out=out)
+    return ck.split_out(out, shape)
+
+
+@pytest.mark.parametrize("shape", CELL_SHAPES)
+def test_cell_reduce_kernel_matches_plain_version(card, shape):
+    """Both entries against the plain version, in float32 and float64: both
+    kernels (narrow and general), a ragged last block of the cluster, one
+    block, and (16, 1024, 8), whose blocks take 128 dp columns each."""
+    pp, dp, tp = shape
+    host = _cell_arrays(shape)
     for dt, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-6)):
         arrays = [torch.as_tensor(a, dtype=dt, device=card) for a in host]
-        got = ck.cell_reduce(*arrays, *consts)
-        want = ck.cell_reduce_reference(*arrays, *consts)
-        for g, w in zip(got, want, strict=True):
-            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
+        want = ck.cell_reduce_reference(*arrays, *CELL_CONSTS)
+        for got in (ck.cell_reduce(*arrays, *CELL_CONSTS),
+                    _cell_packed(card, host, shape, dt)):
+            for g, w in zip(got, want, strict=True):
+                assert g.dtype == dt and g.shape == w.shape
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
+
+
+@pytest.mark.parametrize("shape", [(8, 160, 8), (20, 24, 4)])
+def test_cell_reduce_nan_in_a_tp_edge_propagates(card, shape):
+    """A NaN edge: that cell's tp_bw, its column's stage_max and t are NaN,
+    nothing else (jnp.min / jnp.max semantics), on both entries and both
+    kernels."""
+    host = _cell_arrays(shape, seed=5)
+    host[1][3, 17, 2] = np.nan
+    for dt in (torch.float32, torch.float64):
+        arrays = [torch.as_tensor(a, dtype=dt, device=card) for a in host]
+        want = ck.cell_reduce_reference(*arrays, *CELL_CONSTS)
+        for got in (ck.cell_reduce(*arrays, *CELL_CONSTS),
+                    _cell_packed(card, host, shape, dt)):
+            t, stage_max, tp_bw, dp_bw = (g.cpu() for g in got)
+            assert bool(t.isnan().all()) and bool(stage_max[0, 17].isnan())
+            assert int(stage_max.isnan().sum()) == 1
+            assert bool(tp_bw[3, 17].isnan()) and int(tp_bw.isnan().sum()) == 1
+            assert not bool(dp_bw.isnan().any())
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g.isnan(), w.isnan())
+
+
+def test_cell_reduce_packed_evaluation_equals_unpacked_float32_route(card):
+    """``CudaReduction``'s evaluation (one upload of the packed float64
+    cells, one launch, one download) is bit-equal to five float32 copies,
+    the kernel and a concatenated download."""
+    from repro_torch.cluster.simulator import CudaReduction
+
+    shape = (8, 160, 8)
+    host = _cell_arrays(shape, seed=9)
+    rb = CudaReduction(card)
+    got = rb.evaluate(host, CELL_CONSTS, shape)
+    ins = [torch.as_tensor(a).to(card, torch.float32) for a in host]
+    want = torch.cat([r.reshape(-1) for r in ck.cell_reduce(*ins, *CELL_CONSTS)])
+    assert np.array_equal(got, want.double().cpu().numpy())
+    assert rb.copies == 1 and rb.copy_bytes == 8 * ck.packed_layout(*shape)[1]
 
 
 # adapt_every = 10 retunes max_hypotheses from the flag rate: on this quiet
@@ -384,6 +445,19 @@ def _assert_one_kernel_per_call(fn, part):
     the profiler misses one) and nothing else."""
     names = _cuda_kernels(fn, calls=3)
     assert len(names) in (2, 3) and all(part in n for n in names), names
+
+
+@pytest.mark.parametrize("shape", [(8, 160, 8), (16, 1024, 8)])
+def test_cell_reduce_is_one_kernel_per_call(card, shape):
+    host = _cell_arrays(shape)
+    arrays = [torch.as_tensor(a, dtype=torch.float32, device=card) for a in host]
+    _assert_one_kernel_per_call(lambda: ck.cell_reduce(*arrays, *CELL_CONSTS), "cell_reduce")
+    buf = np.zeros(ck.packed_layout(*shape)[1])
+    ck.pack_cells(buf, host, shape)
+    cells = torch.as_tensor(buf, device=card)
+    out = torch.empty(ck.out_size(*shape), dtype=torch.float32, device=card)
+    _assert_one_kernel_per_call(
+        lambda: ck.cell_reduce_packed(cells, shape, *CELL_CONSTS, out=out), "cell_reduce")
 
 
 @pytest.mark.parametrize("valid", ["int", "tensor"])

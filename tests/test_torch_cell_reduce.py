@@ -3,10 +3,14 @@ the ``TrainingSimulator`` reduction registry) held against the JAX package.
 
 * The plain float32 version vs the Pallas ``cell_reduce`` in interpret mode
   at (2,2,2), (4,8,4) and (8,8,16) (rtol 1e-6).
+* The packed entry (one float64 buffer in, one packed output) on the CPU vs
+  the same at (2,2,2), (4,8,4), (8,8,16) and (16,128,8) (rtol 1e-6), and
+  bit-equal to the plain version on float32 copies (rounding on load).
 * The float64 version vs the JAX package's nested-loop oracle
   ``iteration_time_reference()`` on a faulted simulator (rtol 1e-12).
-* The port's ``TrainingSimulator`` on its ``torch`` reduction vs the JAX
-  package's simulator, across the read API and a run of fault events.
+* The port's ``TrainingSimulator`` on its ``torch`` and ``cuda`` reductions
+  vs the JAX package's simulator, across the read API and a run of fault
+  events, with one packed upload per memo key.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +56,66 @@ def test_plain_float32_matches_jax_interpret(shape):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
 
 
+PACKED_SHAPES = [(2, 2, 2), (4, 8, 4), (8, 8, 16), (16, 128, 8)]
+
+
+def _packed(arrays, shape, dtype=torch.float32):
+    """The packed entry on the CPU: the arrays packed into one float64
+    buffer, the results split out of one packed output."""
+    buf = np.full(ck.packed_layout(*shape)[1], np.nan)
+    ck.pack_cells(buf, arrays, shape)
+    out = torch.empty(ck.out_size(*shape), dtype=dtype)
+    got = ck.cell_reduce_packed(torch.as_tensor(buf), shape, *CONSTS, out=out)
+    assert got is out
+    return ck.split_out(out, shape)
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_float32_matches_jax_interpret(shape):
+    pp, dp, tp = shape
+    arrays = _inputs(pp, dp, tp, seed=sum(shape) + 1)
+    want = ref_ck.cell_reduce(
+        *(jnp.asarray(a, jnp.float32) for a in arrays), *CONSTS,
+        interpret=True,
+    )
+    got = _packed(arrays, shape)
+    for g, w in zip(got, want, strict=True):
+        assert tuple(g.shape) == tuple(w.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (1, 3, 5), (3, 1, 2), (8, 160, 8)])
+def test_packed_float32_rounds_on_load_like_a_float32_copy(shape):
+    """float64 cells reduced in float32 equal the plain version on
+    ``.to(float32)`` copies bit for bit (NaN padding never read)."""
+    arrays = _inputs(*shape, seed=11)
+    want = ck.cell_reduce_reference(
+        *(torch.as_tensor(a).to(torch.float32) for a in arrays), *CONSTS
+    )
+    for g, w in zip(_packed(arrays, shape), want, strict=True):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 5, 7), (2, 9, 3), (8, 160, 8)])
+def test_packed_layout_aligns_and_pads_each_array(shape):
+    """Each array keeps its own shape in the packed buffer, starts on a
+    16-byte boundary and is padded to one; unpacking gives it back. The
+    kernel's blocks of dp columns cover dp, at most MAX_BLOCKS of them."""
+    pp, dp, tp = shape
+    offsets, n = ck.packed_layout(*shape)
+    sizes = (pp * dp, pp * dp * tp, pp * dp * tp, (pp - 1) * dp, dp)
+    assert all(o * 8 % 16 == 0 for o in offsets) and n * 8 % 16 == 0
+    ends = [o + k for o, k in zip(offsets, sizes, strict=True)]
+    assert all(0 <= o - e <= 1 for e, o in zip(ends, offsets[1:] + (n,), strict=True))
+    arrays = _inputs(*shape, seed=4)
+    buf = np.full(n, np.nan)
+    ck.pack_cells(buf, arrays, shape)
+    for a, v in zip(arrays, ck.unpack_cells(torch.as_tensor(buf), shape), strict=True):
+        assert np.array_equal(v.numpy(), a)
+    blocks, span = ck.blocks_of(dp)
+    assert blocks <= ck.MAX_BLOCKS and (blocks - 1) * span < dp <= blocks * span
+
+
 def test_wrapper_runs_plain_version_for_cpu_tensors():
     arrays = [torch.as_tensor(a) for a in _inputs(3, 5, 4, seed=1)]
     before = ck.cell_reduce.launches
@@ -66,9 +130,10 @@ def _model(pkg_model_spec):
     return pkg_model_spec(layers=16, hidden=2048, seq_len=1024, vocab=32000)
 
 
-def _faulted_pair(tp=4, dp=8, pp=4, seed=0):
+def _faulted_pair(tp=4, dp=8, pp=4, seed=0, reduction="torch"):
     """The same faulted job in both packages: the JAX package's simulator
-    and the port's, on its float64 ``torch`` reduction on the CPU."""
+    and the port's, on its ``reduction`` (float64 ``torch`` by default) on
+    the CPU."""
     n = tp * dp * pp
     ref = RefSim(cluster=RefClusterSpec(n_nodes=n // 8),
                  job=RefJobSpec(model=_model(RefModelSpec), tp=tp, dp=dp,
@@ -77,7 +142,7 @@ def _faulted_pair(tp=4, dp=8, pp=4, seed=0):
         cluster=ClusterSpec(n_nodes=n // 8),
         job=S.JobSpec(model=_model(ModelSpec), tp=tp, dp=dp, pp=pp,
                       micro_batches=2 * dp),
-        reduction="torch", device="cpu",
+        reduction=reduction, device="cpu",
     )
     rng = np.random.default_rng(seed)
     for d in rng.choice(n, 5, replace=False):
@@ -177,3 +242,34 @@ def test_auto_reduction_needs_the_card_or_an_explicit_cpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             sim.iteration_time()
 
+
+
+def test_cuda_reduction_packs_one_copy_per_memo_key():
+    """``CudaReduction`` on the CPU runs the packed route (its plain
+    version): one upload of the packed buffer per memo key, and results
+    within the float32 tolerance of the JAX package's loop oracle."""
+    ref, port = _faulted_pair(seed=7, reduction="cuda")
+    rb = port._reduction_backend()
+    assert isinstance(rb, S.CudaReduction) and rb.copies == 0
+    packed_bytes = 8 * ck.packed_layout(4, 8, 4)[1]
+    rng = np.random.default_rng(13)
+    n = port.job.n_devices
+    for step in range(8):
+        d = int(rng.integers(n))
+        v = float(rng.uniform(0.3, 1.0))
+        for sim in (ref, port):
+            sim.state.devices[d].compute_speed = v
+        if step % 3 == 2:
+            a, b = int(rng.integers(n)), int(rng.integers(n))
+            for sim in (ref, port):
+                sim.state.degrade_link(a, b, 0.6)
+        np.testing.assert_allclose(port.iteration_time(),
+                                   ref.iteration_time_reference(), rtol=1e-4)
+        np.testing.assert_allclose(port.per_microbatch_times(),
+                                   ref.per_microbatch_times_reference(), rtol=1e-4)
+        want = ref.profile_groups_reference()
+        got = port.profile_groups()
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
+        assert rb.copies == step + 1
+        assert rb.copy_bytes == rb.copies * packed_bytes
