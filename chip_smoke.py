@@ -78,10 +78,27 @@ order:
     diagnosis and a mitigation in it; seconds per step and peak memory;
 13. the SSD scan's times at the forward shape (as phase 8), split by
     kernel (torch.profiler), beside the bound and the design's own floor;
-    at most SSD_GATE_MS and faster than the plain chunked route.
+    at most SSD_GATE_MS and faster than the plain chunked route;
+14. campaigns (slice 7's main path): ``repro_torch.scenarios.run_and_score``
+    on the card with the default backends (the shared-prefix engine, the
+    CUDA ``bocd_step`` screen in float32) for each of the eight presets at
+    its default jobs and seed 0, held to the committed report
+    ``results/campaigns/<preset>-j<n>-s0.json``: equal decisions (type, job,
+    time, change point, root cause, components, strategy, status of every
+    flag, diagnosis, mitigation action and result), equal ``detection``,
+    ``mitigation``, ``episodes`` and ``diagnoses`` blocks, every other float
+    within CAMPAIGN_RTOL relative; byte identity reported. Each preset also
+    runs on the CPU eager route (numpy backends, independent runs, byte
+    identical to the committed report) for its wall seconds; ``bocd_step``
+    launches and the host time of the engine's per-tick plane snapshots are
+    reported. ``mixed_fleet`` with ``obs=True``: its trace and metrics
+    sidecars equal the committed ones byte for byte. A 3-seed
+    ``single_gpu_throttle -j1`` sweep over a spawn pool of two workers on
+    the card equals ``results/sweeps/single_gpu_throttle-j1-seeds3.json``.
 
 Any failure exits non-zero. The last two lines are a JSON object with one
-entry per kernel and ``{"ok": true, "device": {...}}``. The script imports
+entry per kernel (``bocd_step``'s also carries ``campaign_launches``, its
+launches in phase 14) and ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the JAX package: the card's machine has neither.
 """
 from __future__ import annotations
@@ -176,6 +193,20 @@ PARITY_TOL = (1e-3, 1e-3)  # (rtol, atol), float32
 # relative per layer; the plain route rounds its scores and chunk states
 # only to the activation type, float32 here), grown through 64 layers.
 SSD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 3e-2)}  # (rtol, atol)
+
+
+# Slice 7's path: the eight presets at their default jobs, seed 0 — the
+# committed reports. A report's floats that are not decisions or scores
+# (flag means, severities, screen tunings) come from the float32 screen
+# and are held to the float32 contract of docs/kernels.md.
+CAMPAIGNS = (("single_gpu_throttle", 1), ("rack_nic_congestion", 4),
+             ("cascading_host_contention", 4), ("long_tail_degradation", 2),
+             ("collective_hang", 2), ("flaky_executor", 2), ("failslow_storm", 6),
+             ("mixed_fleet", 8))
+CAMPAIGN_RTOL = 1e-4
+CAMPAIGN_BLOCKS = ("detection", "mitigation", "episodes", "diagnoses")
+SWEEP = ("single_gpu_throttle", 1, 3)    # preset, jobs, seeds
+SWEEP_WORKERS = 2
 
 
 class SmokeError(RuntimeError):
@@ -1695,6 +1726,177 @@ def _kernel_split(torch, fn, calls=10):
     return "; ".join(f"{k} {v:.1f} us" for k, v in sorted(total.items(), key=lambda kv: -kv[1]))
 
 
+# ------------------------------------------------------------------ phase 14
+def _decisions(event_log):
+    """The decisions of a report's event log (the records' form of
+    ``_event_key``): type, job, time, change-point index, root cause,
+    components, strategy and status of each flag, diagnosis, mitigation
+    action and result."""
+    keys = []
+    for rec in event_log:
+        kind = rec["type"]
+        if kind not in ("Flag", "Diagnosis", "MitigationAction", "MitigationResult"):
+            continue
+        event = rec.get("event") or {}
+        keys.append((
+            kind, rec["job_id"], rec["time"],
+            (rec.get("change_point") or {}).get("index"),
+            event.get("root_cause"), tuple(event.get("components", ())),
+            rec.get("strategy"), rec.get("status"), rec.get("applied"),
+            rec.get("resolved"), rec.get("deduped_from"),
+        ))
+    return keys
+
+
+def _first_diff(got, want, path="", rtol=0.0):
+    """The first path where two JSON trees differ (None = none): floats
+    beyond ``rtol`` relative, anything else unequal."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        if sorted(got) != sorted(want):
+            return f"{path or '/'}: keys {sorted(set(got) ^ set(want))}"
+        for k in sorted(want):
+            d = _first_diff(got[k], want[k], f"{path}/{k}", rtol)
+            if d:
+                return d
+        return None
+    if isinstance(want, list) and isinstance(got, list):
+        if len(got) != len(want):
+            return f"{path}: length {len(got)} vs {len(want)}"
+        for i, (g, w) in enumerate(zip(got, want)):
+            d = _first_diff(g, w, f"{path}[{i}]", rtol)
+            if d:
+                return d
+        return None
+    if (isinstance(want, float) and isinstance(got, (int, float))
+            and not isinstance(got, bool)):
+        if abs(got - want) <= rtol * max(abs(got), abs(want)):
+            return None
+        return f"{path}: {got!r} vs {want!r}"
+    return None if got == want and type(got) is type(want) else f"{path}: {got!r} vs {want!r}"
+
+
+def _report_bytes(report):
+    """A report as ``write_report`` serializes it."""
+    return (json.dumps(report, indent=1, sort_keys=True) + "\n").encode()
+
+
+def _hold_report(preset, got, want_bytes):
+    """Hold a card report to the committed one; returns the first path at
+    which their bytes differ (None = byte identical)."""
+    want = json.loads(want_bytes)
+    need(_decisions(got["event_log"]) == _decisions(want["event_log"]),
+         f"{preset}: decisions differ from the committed report "
+         f"({_first_diff(got['event_log'], want['event_log'])})")
+    for block in CAMPAIGN_BLOCKS:
+        need(got[block] == want[block], f"{preset}: the {block} block differs "
+             f"({_first_diff(got[block], want[block])})")
+    d = _first_diff(got, want, rtol=CAMPAIGN_RTOL)
+    need(d is None, f"{preset}: the report differs beyond {CAMPAIGN_RTOL} relative at {d}")
+    return None if _report_bytes(got) == want_bytes else _first_diff(got, want)
+
+
+def phase_campaigns(torch, card):
+    """Slice 7's path: the scenario campaigns through ``run_and_score`` on
+    the card with the default backends, held to the committed reports;
+    the ``mixed_fleet`` sidecars; a spawned sweep. Returns bocd_step's
+    launches over the eight campaigns."""
+    from repro_torch.controlplane.plane import ControlPlane
+    from repro_torch.kernels.bocd_step import bocd_step
+    from repro_torch.kernels.cell_reduce import cell_reduce
+    from repro_torch.launch import sweep
+    from repro_torch.obs.recorder import write_sidecars
+    from repro_torch.scenarios import run_and_score, write_report
+
+    committed = ROOT / "results" / "campaigns"
+    out_dir = ROOT / "build" / "chip_smoke_campaigns"
+    # Host time of the engine's rolling plane snapshots (one a tick of the
+    # shared leg; on the card each copies every cohort's slot state back).
+    snaps = {"n": 0, "s": 0.0}
+    snapshot = ControlPlane.snapshot
+
+    def timed_snapshot(self):
+        t0 = time.perf_counter()
+        try:
+            return snapshot(self)
+        finally:
+            snaps["n"] += 1
+            snaps["s"] += time.perf_counter() - t0
+
+    ControlPlane.snapshot = timed_snapshot
+    total = 0
+    t_phase = time.perf_counter()
+    try:
+        for preset, jobs in CAMPAIGNS:
+            want_bytes = (committed / f"{preset}-j{jobs}-s0.json").read_bytes()
+            snaps.update(n=0, s=0.0)
+            torch.cuda.synchronize()
+            bocd_step.launches = 0
+            cell_reduce.launches = 0
+            t0 = time.perf_counter()
+            _, runs, report = run_and_score(preset, n_jobs=jobs, seed=0)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            launches = bocd_step.launches
+            cells = cell_reduce.launches
+            need(launches > 0, f"{preset}: the campaign launched no bocd_step kernel")
+            total += launches
+            n_snap, snap_s = snaps["n"], snaps["s"]
+            diff = _hold_report(preset, report, want_bytes)
+            t0 = time.perf_counter()
+            _, _, cpu_report = run_and_score(
+                preset, n_jobs=jobs, seed=0, device="cpu", screening_backend="batched",
+                reduction_backend="vectorized", fresh=True)
+            cpu_s = time.perf_counter() - t0
+            need(_report_bytes(cpu_report) == want_bytes,
+                 f"{preset}: the CPU eager route's report is not the committed one")
+            ticks = report["campaign"]["ticks_run"]
+            log(f"[14 campaigns] {preset} -j{jobs} -s0: decisions "
+                f"({len(_decisions(report['event_log']))}) and scoring "
+                f"equal to the committed report, other floats within {CAMPAIGN_RTOL}; "
+                f"bytes {'identical' if diff is None else 'differ first at ' + diff}; "
+                f"ticks {ticks}; bocd_step launches {launches}, cell_reduce {cells}; "
+                f"card {card_s:.3f} s, CPU eager route {cpu_s:.3f} s; engine "
+                f"snapshots {n_snap} taking {snap_s * 1e3:.1f} ms host "
+                f"({snap_s * 1e6 / max(n_snap, 1):.1f} us each); card: {card}")
+    finally:
+        ControlPlane.snapshot = snapshot
+    campaigns_s = time.perf_counter() - t_phase
+
+    # mixed_fleet with its observability sidecars: the tracer runs on the
+    # simulated clock, so the sidecars are byte for byte the committed ones.
+    preset, jobs = CAMPAIGNS[-1]
+    base = f"{preset}-j{jobs}-s0"
+    t0 = time.perf_counter()
+    spec, runs, report = run_and_score(preset, n_jobs=jobs, seed=0, obs=True)
+    obs_s = time.perf_counter() - t0
+    _hold_report(preset, report, (committed / f"{base}.json").read_bytes())
+    write_report(report, str(out_dir))
+    paths = write_sidecars(spec, runs, report, out_dir=str(out_dir))
+    for kind in ("trace", "metrics"):
+        need(Path(paths[kind]).read_bytes() == (committed / f"{base}.{kind}.json").read_bytes(),
+             f"{preset}: the {kind} sidecar differs from the committed one")
+    log(f"[14 campaigns] {preset} --obs on the card: trace and metrics sidecars byte "
+        f"identical to the committed ones ({obs_s:.3f} s); card: {card}")
+
+    # A seed sweep over a spawn pool: each worker opens its own CUDA context.
+    name, jobs, seeds = SWEEP
+    t0 = time.perf_counter()
+    table = sweep.run_sweep(name, n_jobs=jobs, seeds=seeds, workers=SWEEP_WORKERS)
+    sweep_s = time.perf_counter() - t0
+    path = Path(sweep.write_sweep(table, str(out_dir)))
+    want = ROOT / "results" / "sweeps" / f"{name}-j{jobs}-seeds{seeds}.json"
+    need(json.loads(path.read_text()) == json.loads(want.read_text()),
+         f"the {name} sweep differs from the committed table "
+         f"({_first_diff(json.loads(path.read_text()), json.loads(want.read_text()))})")
+    same = path.read_bytes() == want.read_bytes()
+    log(f"[14 campaigns] sweep {name} -j{jobs} --seeds {seeds} --workers {SWEEP_WORKERS} "
+        f"(spawn) on the card: equal to the committed table (bytes "
+        f"{'identical' if same else 'differ'}), {sweep_s:.3f} s; card: {card}")
+    log(f"[14 campaigns] {len(CAMPAIGNS)} presets in {campaigns_s:.1f} s (card and CPU "
+        f"routes); bocd_step launches over the card campaigns {total}")
+    return total
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -1737,6 +1939,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         rows.append(phase_times_ssd(torch, card, errs, mamba_launches))
         phase_train(torch, np, card)
+        rows[0]["campaign_launches"] = phase_campaigns(torch, card)
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
         need(not leaked, f"modules of jax or the JAX package were loaded: {leaked[:5]}")

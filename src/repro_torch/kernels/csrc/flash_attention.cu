@@ -238,10 +238,18 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int b, int
               int h, int kvh, const long long* st, float scale, int causal, int window,
               cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  // The shared-memory opt-in is kept per device: set it on a device the
+  // host thread has not launched on last.
+  thread_local int opted_dev = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (opted_dev != dev) {
+    err = cudaFuncSetAttribute(attention_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_dev = dev;
+  }
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   attention_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -650,12 +658,17 @@ int launch_wg_hd(const void* q, const void* k, const void* v, void* out, int b, 
                  int h, int kvh, const long long* st, float scale, int causal, int window,
                  cudaStream_t stream) {
   constexpr int bytes = wg_smem_bytes<HD>();
-  static bool attr_set = false;
-  if (!attr_set) {
+  // The shared-memory opt-in is kept per device: set it on a device the
+  // host thread has not launched on last.
+  thread_local int opted_dev = -1;
+  int dev = 0;
+  const cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (opted_dev != dev) {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_wg_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    opted_dev = dev;
   }
   CUtensorMap mq, mk, mv;
   int err = make_map(&mq, q, HD, sq, h, b, st[1], st[2], st[0], kWgBQ);

@@ -424,12 +424,17 @@ template <typename T, int HD, int RB>
 int launch_rb(const Args& a) {
   auto kernel = decode_kernel<T, HD, RB>;
   constexpr int bytes = Smem<T, HD, RB>::BYTES;
-  static bool attr_set = false;   // one attribute call per instantiation
-  if (!attr_set) {
+  // The shared-memory opt-in is kept per device (and per instantiation):
+  // set it on a device the host thread has not launched on last.
+  thread_local int opted_dev = -1;
+  int dev = 0;
+  const cudaError_t dev_err = cudaGetDevice(&dev);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  if (opted_dev != dev) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
-    attr_set = true;
+    opted_dev = dev;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.n_split, a.kvh * ((a.h / a.kvh) / RB), a.b);

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch``, running a control
-plane tick, serving one smoke-size prefill + decode step and taking one
-smoke-size training step load neither jax nor the JAX package (checked in
-a fresh interpreter), and the default entry points want the card."""
+plane tick, serving one smoke-size prefill + decode step, taking one
+smoke-size training step, scoring one campaign and writing its
+observability sidecars load neither jax nor the JAX package (checked in a
+fresh interpreter), and the default entry points want the card."""
 import os
 import subprocess
 import sys
@@ -52,6 +53,19 @@ _PROGRAM = textwrap.dedent("""
                             perf_model=train_simulator(cfg, data, device="cpu"))
     hist = trainer.run(1)
     assert np.isfinite(hist[0].loss), hist
+
+    import tempfile
+    from repro_torch.launch import campaign, obs, sweep  # noqa: F401
+    from repro_torch.obs.dashboard import render_dashboard
+    from repro_torch.obs.recorder import write_sidecars
+    from repro_torch.scenarios import run_and_score
+
+    spec, runs, report = run_and_score("single_gpu_throttle", device="cpu",
+                                       obs=True)
+    with tempfile.TemporaryDirectory() as out:
+        paths = write_sidecars(spec, runs, report, out_dir=out)
+        assert sorted(paths) == ["metrics", "trace"], paths
+    assert render_dashboard(report).count("<svg") == 3
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))
@@ -98,3 +112,26 @@ def test_model_entry_points_raise_without_a_card():
     params = model_lib.init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(cfg, params, [[1, 2, 3]], gen=1)
+
+
+def test_campaign_entry_points_raise_without_a_card(tmp_path):
+    from repro_torch.launch import campaign
+    from repro_torch.scenarios import CampaignEngine, build_campaign, run_and_score
+    from repro_torch.scenarios.campaign import run_campaign
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_and_score("single_gpu_throttle")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_and_score("single_gpu_throttle", fresh=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_campaign("single_gpu_throttle")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        campaign.main(["--preset", "single_gpu_throttle", "--out", str(tmp_path)])
+    spec = build_campaign("single_gpu_throttle", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_campaign(spec, "falcon")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CampaignEngine(spec).run("faults")
+    assert not list(tmp_path.iterdir())
