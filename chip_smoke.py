@@ -21,7 +21,8 @@ order:
    one on float64 cells equal bit for bit to the kernel on copies of the
    arithmetic type), and with one NaN TP edge;
    ``flash_decode`` (GQA rep 4, MQA, per-sequence lengths, valid_len 1 and
-   0, a cache length off the split grid) and ``flash_attention`` (causal,
+   0, a cache length off the split grid, MHA rep 1 at the OLMoE serve
+   shape) and ``flash_attention`` (causal,
    non-causal, a window, a ragged Sq) in float32 and bfloat16; ``ssd_scan``
    (the reference's three test shapes, two groups included, and the
    mamba2-2.7b forward shape, also with a dt 100x smaller that carries the
@@ -50,7 +51,8 @@ order:
    the plain blocked attention reported;
 8. times: median CUDA-event time per call of each kernel, of its plain
    version and, where one PyTorch call computes the same function, of
-   that call, at the paths' shapes, beside the bound, with its rate and its
+   that call, at the paths' shapes (the attention kernels also at
+   olmoe-1b-7b's: 16/16 heads, rep 1), beside the bound, with its rate and its
    ratios to that call and to the bound; the CUDA kernels of one
    ``bocd_step`` call (torch.profiler), its time held to BOCD_GATE_MS;
    ``cell_reduce`` on the packed float64 cells at (8, 160, 8) (held to
@@ -94,11 +96,31 @@ order:
     reported. ``mixed_fleet`` with ``obs=True``: its trace and metrics
     sidecars equal the committed ones byte for byte. A 3-seed
     ``single_gpu_throttle -j1`` sweep over a spawn pool of two workers on
-    the card equals ``results/sweeps/single_gpu_throttle-j1-seeds3.json``.
+    the card equals ``results/sweeps/single_gpu_throttle-j1-seeds3.json``;
+15. the what-if layer (slice 8): ``repro_torch.launch.whatif``'s ``main``
+    on the card with the default backends (the CUDA ``bocd_step`` screen in
+    float32) for the ``single_gpu_throttle -j1`` leave-one-out sidecar, its
+    explain artifact and 3-seed tuning file, and the ``mixed_fleet -j8``
+    leave-one-out sidecar, each held to the committed file (equal decision
+    identities, causes, episodes and tuner probes, every float within
+    CAMPAIGN_RTOL; byte identity reported), then on the CPU route
+    (``--device cpu``: the committed bytes) for its wall seconds;
+    ``bocd_step`` launches and the replay stats are reported;
+16. olmoe-1b-7b (slice 8's MoE) at its published width: ``serve`` with 8
+    requests x (1,024 prompt + 64 generated), ``use_kernel`` and
+    ``gpu:1:0.5:0.5:200``: ``flash_decode`` launched 16 x 64 times, finite
+    logits, the FALCON onset of the CPU latency loop (token 31); a forward
+    over 4,096 tokens with the config's window (4,096), ``flash_attention``
+    launched 16 times, the bf16 plain route reported; in float32 (weights
+    upcast) each MoE layer's routing recomputed in both routes, the routing
+    flips counted and printed, and the logits of the rows no flip reaches
+    held to PARITY_TOL. The model's tensors are released after.
 
 Any failure exits non-zero. The last two lines are a JSON object with one
-entry per kernel (``bocd_step``'s also carries ``campaign_launches``, its
-launches in phase 14) and ``{"ok": true, "device": {...}}``. The script imports
+entry per kernel (``bocd_step``'s also carries ``campaign_launches`` and
+``whatif_launches``, its launches in phases 14 and 15; ``flash_decode``'s
+and ``flash_attention``'s ``olmoe_launches``, theirs in phase 16) and
+``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the JAX package: the card's machine has neither.
 """
 from __future__ import annotations
@@ -207,6 +229,40 @@ CAMPAIGN_RTOL = 1e-4
 CAMPAIGN_BLOCKS = ("detection", "mitigation", "episodes", "diagnoses")
 SWEEP = ("single_gpu_throttle", 1, 3)    # preset, jobs, seeds
 SWEEP_WORKERS = 2
+
+# Slice 8's paths. The what-if CLI's committed artifacts: (label, the CLI's
+# arguments as the reference was given them, the committed file). Run from
+# the checkout's root, so the explain artifact embeds the same baseline
+# path.
+SGT_REPORT = "results/campaigns/single_gpu_throttle-j1-s0.json"
+WHATIF_RUNS = (
+    ("single_gpu_throttle -j1 leave-one-out", ["--report", SGT_REPORT, "--leave-one-out"],
+     "results/campaigns/single_gpu_throttle-j1-s0.attribution.json"),
+    ("single_gpu_throttle -j1 explain",
+     ["--preset", "single_gpu_throttle", "--jobs", "1", "--seed", "0", "--explain", SGT_REPORT],
+     "results/whatif/explain-single_gpu_throttle-j1-s0.json"),
+    ("single_gpu_throttle -j1 3-seed tuning",
+     ["--preset", "single_gpu_throttle", "--jobs", "1", "--seed", "0", "--tune",
+      "breakeven_scale", "prediction_margin", "--tune-seeds", "3"],
+     "results/whatif/single_gpu_throttle-j1-s3seeds-tuning.json"),
+    ("mixed_fleet -j8 leave-one-out",
+     ["--report", "results/campaigns/mixed_fleet-j8-s0.json", "--leave-one-out"],
+     "results/campaigns/mixed_fleet-j8-s0.attribution.json"),
+)
+# olmoe-1b-7b at its published width (16 layers, d_model 2048, 16 heads /
+# 16 KV heads of 128, 64 experts top-8, expert width 1,024), random weights
+# from seed 0: serving as granite's (8 x (1,024 + 64), use_kernel) with a
+# fail-slow that fires inside 64 tokens (the modeled time per token is
+# ~0.0168 s), and a forward over FORWARD_LEN tokens with the config's
+# sliding window (4,096) passed down as the model passes it.
+OLMOE_ARCH = "olmoe-1b-7b"
+OLMOE_INJECT = "gpu:1:0.5:0.5:200"
+OLMOE_EVENT = (31, "gpu_degradation", ["gpu:1"])
+# The widest gap between the k-th and (k+1)-th router probabilities that a
+# float32 routing flip may show: the two routes' router inputs differ by
+# attention's summation order (~1e-6 relative), which moves a probability
+# of ~1/64 by ~1e-8; sound near-ties read ~1e-7, a typical gap ~2e-3.
+FLIP_GAP = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -498,6 +554,7 @@ DECODE_CASES = (   # label, B, Skv, H, KVH, hd, valid_len
     ("valid_len 0", 2, 64, 4, 2, 64, 0),
     ("per-sequence with zeros", 4, 300, 8, 2, 128, [0, 5, 0, 300]),
     ("Skv 1,000 off the split grid", 2, 1000, 16, 4, 128, 999),
+    ("MHA rep 1 (the OLMoE serve shape)", 8, 1088, 16, 16, 128, 1088),
 )
 ATTENTION_CASES = (   # label, B, Sq, Skv, H, KVH, hd, causal, window
     ("causal GQA", 1, 256, 256, 4, 2, 64, True, 0),
@@ -1276,9 +1333,12 @@ def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
     out = []
     saved = (flash_decode.launches, flash_attention.launches)
     bf = torch.bfloat16
-    # flash_decode at the serve's last step: B = 8, 1,088 valid of 1,088.
-    b, h, kvh, hd = SERVE_B, 32, 8, 128
-    for skv in (SERVE_PROMPT + SERVE_GEN, 32768):
+    # flash_decode at the serve's last step: B = 8, 1,088 valid of 1,088
+    # (granite's 32/8 heads, the row's shape; 32,768 positions; OLMoE's
+    # 16/16 heads, rep 1).
+    b, hd = SERVE_B, 128
+    for h, kvh, skv in ((32, 8, SERVE_PROMPT + SERVE_GEN), (32, 8, 32768),
+                        (16, 16, SERVE_PROMPT + SERVE_GEN)):
         q = _normal(torch, 90, (b, h, hd), bf)
         k = _normal(torch, 91, (b, skv, kvh, hd), bf)
         v = _normal(torch, 92, (b, skv, kvh, hd), bf)
@@ -1300,33 +1360,41 @@ def phase_times_attention(torch, card, errs, serve_launches, forward_launches):
             f"of >=100); per call with host {call_ms:.4f} ms; bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB); "
             f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; {_ratios(row, lib_ms)}; card: {card}")
-        if skv == SERVE_PROMPT + SERVE_GEN:
+        if (h, kvh, skv) == (32, 8, SERVE_PROMPT + SERVE_GEN):
             out.append(row)
         del q, k, v, kt, vt
-    # flash_attention at the forward's shape.
-    b, s, h, kvh, hd = 1, FORWARD_LEN, 32, 8, 128
-    q = _normal(torch, 93, (b, s, h, hd), bf)
-    k = _normal(torch, 94, (b, s, kvh, hd), bf)
-    v = _normal(torch, 95, (b, s, kvh, hd), bf)
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-    flops = 4 * b * h * hd * (s * (s + 1) // 2)
-    ms, call_ms = _device_ms(torch, lambda: flash_attention(q, k, v, causal=True), runs=30)
-    plain_ms, _ = _device_ms(torch, lambda: flash_attention_reference(q, k, v, causal=True),
-                             runs=30)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), "flash_attention sdpa")
-    row = _row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention.py:91", forward_launches["flash_attention"],
-               errs[("flash_attention", "bfloat16")], ms, plain_ms, nbytes, flops,
-               BF16_FLOP_PER_S, lib_ms)
-    out.append(row)
-    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"[8 times] flash_attention bf16 causal B={b} S={s} H={h} KVH={kvh} hd={hd}: kernel "
-        f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; {_ratios(row, lib_ms)}), "
-        f"plain {plain_ms:.4f} ms, sdpa {lib} (device, median of >=30); per call with host "
-        f"{call_ms:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-        f"{flops / 1e9:.1f} GFLOP); card: {card}")
+    # flash_attention at the forward's shape (granite's 32/8 heads, the
+    # row's shape), and at OLMoE's (16/16 heads, its window of 4,096 passed
+    # as the model passes it: every key of a causal row is inside it, so
+    # SDPA's causal call computes the same function).
+    b, s, hd = 1, FORWARD_LEN, 128
+    for h, kvh, window in ((32, 8, 0), (16, 16, FORWARD_LEN)):
+        q = _normal(torch, 93, (b, s, h, hd), bf)
+        k = _normal(torch, 94, (b, s, kvh, hd), bf)
+        v = _normal(torch, 95, (b, s, kvh, hd), bf)
+        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+        flops = 4 * b * h * hd * (s * (s + 1) // 2)
+        ms, call_ms = _device_ms(
+            torch, lambda: flash_attention(q, k, v, causal=True, window=window), runs=30)
+        plain_ms, _ = _device_ms(
+            torch, lambda: flash_attention_reference(q, k, v, causal=True, window=window),
+            runs=30)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), "flash_attention sdpa")
+        row = _row("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:91",
+                   forward_launches["flash_attention"], errs[("flash_attention", "bfloat16")],
+                   ms, plain_ms, nbytes, flops, BF16_FLOP_PER_S, lib_ms)
+        if window == 0:
+            out.append(row)
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"[8 times] flash_attention bf16 causal B={b} S={s} H={h} KVH={kvh} hd={hd} "
+            f"window={window}: kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; "
+            f"{_ratios(row, lib_ms)}), plain {plain_ms:.4f} ms, sdpa {lib} (device, median "
+            f"of >=30); per call with host {call_ms:.4f} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}: {flops / 1e9:.1f} GFLOP); card: {card}")
+        del q, k, v, qt, kt, vt
     flash_decode.launches, flash_attention.launches = saved
     return out
 
@@ -1897,6 +1965,307 @@ def phase_campaigns(torch, card):
     return total
 
 
+# ------------------------------------------------------------------ phase 15
+def _whatif_ids(rows):
+    return [(r["job_id"], r["strategy"], r["time_s"], r["cause"]) for r in rows]
+
+
+def _hold_whatif(label, got_bytes, want_bytes):
+    """Hold a what-if artifact made on the card to the committed one: the
+    same decision identities, ``per_cause`` causes and episodes, tuning
+    evaluations (knob, value), every float within CAMPAIGN_RTOL relative.
+    Returns the first path at which the bytes differ (None = identical)."""
+    got, want = json.loads(got_bytes), json.loads(want_bytes)
+    if "per_decision" in want:
+        need(_whatif_ids(got["per_decision"]) == _whatif_ids(want["per_decision"]),
+             f"{label}: the decisions differ from the committed artifact "
+             f"({_first_diff(got['per_decision'], want['per_decision'])})")
+    if "per_cause" in want:
+        need(sorted(got["per_cause"]) == sorted(want["per_cause"]),
+             f"{label}: causes {sorted(got['per_cause'])} vs {sorted(want['per_cause'])}")
+        for cause, row in want["per_cause"].items():
+            need(got["per_cause"][cause].get("episodes") == row.get("episodes"),
+                 f"{label}: the episodes of {cause} differ")
+    if "evaluations" in want:
+        pairs = [(e["knob"], e["value"]) for e in want["evaluations"]]
+        need([(e["knob"], e["value"]) for e in got["evaluations"]] == pairs,
+             f"{label}: the tuner probed other knob values")
+        need(got["tuned"] == want["tuned"], f"{label}: tuned {got['tuned']} vs {want['tuned']}")
+    d = _first_diff(got, want, rtol=CAMPAIGN_RTOL)
+    need(d is None, f"{label}: the artifact differs beyond {CAMPAIGN_RTOL} relative at {d}")
+    return None if got_bytes == want_bytes else _first_diff(got, want)
+
+
+def phase_whatif(torch, card):
+    """Slice 8's what-if path: ``python -m repro_torch.launch.whatif`` (its
+    ``main``) on the card with the default backends (the CUDA
+    ``bocd_step`` screen in float32 on the card) for each of WHATIF_RUNS,
+    held to the committed artifact, then the same on the CPU route
+    (``--device cpu``, the float64 ``torch`` screen: the committed bytes)
+    for its wall seconds. Returns bocd_step's launches over the card runs."""
+    import os
+
+    from repro_torch.kernels.bocd_step import bocd_step
+    from repro_torch.kernels.cell_reduce import cell_reduce
+    from repro_torch.launch import whatif
+    from repro_torch.whatif import WhatIfEngine
+
+    out_dir = ROOT / "build" / "chip_smoke_whatif"
+    engines = []
+    init = WhatIfEngine.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        engines.append(self)
+
+    cwd = os.getcwd()
+    os.chdir(ROOT)
+    WhatIfEngine.__init__ = recording_init
+    total, t_phase = 0, time.perf_counter()
+    try:
+        for i, (label, argv, committed) in enumerate(WHATIF_RUNS):
+            want_bytes = (ROOT / committed).read_bytes()
+            secs, outs = {}, {}
+            for route, dev in (("card", "cuda"), ("cpu", "cpu")):
+                path = out_dir / f"{i}-{route}.json"
+                engines.clear()
+                torch.cuda.synchronize()
+                bocd_step.launches = cell_reduce.launches = 0
+                t0 = time.perf_counter()
+                rc = whatif.main([*argv, "--device", dev, "--quiet", "--out", str(path)])
+                torch.cuda.synchronize()
+                secs[route] = time.perf_counter() - t0
+                need(rc == 0, f"{label} on {dev}: the CLI exited {rc}")
+                outs[route] = path.read_bytes()
+                if route == "card":
+                    launches, cells = bocd_step.launches, cell_reduce.launches
+                    stats = {k: sum(e.stats[k] for e in engines)
+                             for k in ("variants", "variant_job_runs", "cache_hits")}
+                    n_engines = len(engines)
+            need(outs["cpu"] == want_bytes,
+                 f"{label}: the CPU route's artifact is not the committed one")
+            need(launches > 0, f"{label}: no bocd_step kernel was launched")
+            total += launches
+            diff = _hold_whatif(label, outs["card"], want_bytes)
+            got = json.loads(outs["card"])
+            head = ""
+            if "totals" in got:
+                head = f"mitigated {got['totals']['mitigated_pct']} % of the slowdown; "
+            elif "objective_tuned_pct" in got:
+                head = (f"objective {got['objective_default_pct']} -> "
+                        f"{got['objective_tuned_pct']} %; ")
+            log(f"[15 what-if] {label} on the card: equal to {committed} (decisions, "
+                f"causes and episodes; floats within {CAMPAIGN_RTOL}); bytes "
+                f"{'identical' if diff is None else 'differ first at ' + diff}; {head}"
+                f"{n_engines} engine(s), replay stats {stats}; bocd_step launches "
+                f"{launches}, cell_reduce {cells}; card {secs['card']:.3f} s, CPU route "
+                f"{secs['cpu']:.3f} s ({secs['card'] / secs['cpu']:.2f}x); card: {card}")
+    finally:
+        WhatIfEngine.__init__ = init
+        os.chdir(cwd)
+    log(f"[15 what-if] {len(WHATIF_RUNS)} artifacts in {time.perf_counter() - t_phase:.1f} s "
+        f"(card and CPU routes); bocd_step launches over the card runs {total}")
+    return total
+
+
+# ------------------------------------------------------------------ phase 16
+def _routing_recorder(torch):
+    """Wrap ``moe.apply_moe`` (the model looks it up at every call) so each
+    MoE layer's input is kept and its routing recomputed with ``moe.route``:
+    per call, the input (T, D), the sorted top-k expert set and the k-th and
+    (k+1)-th probabilities of every token. Returns (records, restore)."""
+    from repro_torch.models import layers, moe
+
+    real, records = moe.apply_moe, []
+
+    def recording(p, x, cfg):
+        with torch.no_grad():
+            flat = x.reshape(-1, x.shape[-1])
+            hn = layers.rmsnorm(flat, p["norm"], cfg.norm_eps)
+            logits = layers.matmul(hn, p["router"])
+            _, idx, _ = moe.route(logits, cfg.top_k, n_real=cfg.num_experts)
+            probs = torch.softmax(logits.float(), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True, stable=True).values
+            records.append((flat.clone(), idx.sort(dim=-1).values,
+                            top[:, cfg.top_k - 1:cfg.top_k + 1]))
+        return real(p, x, cfg)
+
+    moe.apply_moe = recording
+
+    def restore():
+        moe.apply_moe = real
+
+    return records, restore
+
+
+def _routing_flips(kern, plain):
+    """(layer, token, k-th/(k+1)-th probabilities of both routes, primary)
+    of every token whose top-k expert set differs between the two routes.
+    A flip is primary when no flip of an earlier layer reaches it (one at a
+    token at or before it: attention is causal); later ones may follow from
+    a primary flip's changed output by any margin."""
+    flips, reach = [], None   # reach: the first flipped token of the earlier layers
+    for layer, ((_, ik, pk), (_, ip, pp)) in enumerate(zip(kern, plain)):
+        rows = (ik != ip).any(dim=-1).nonzero().flatten().tolist()
+        for t in rows:
+            flips.append((layer, t, pk[t].tolist(), pp[t].tolist(), reach is None or t < reach))
+        if rows:
+            reach = min(rows) if reach is None else min(reach, min(rows))
+    return flips
+
+
+def phase_olmoe(torch, np, card):
+    """Slice 8's model path: olmoe-1b-7b (OLMOE_ARCH) at its published
+    width, random weights from seed 0. (a) ``serve`` with ``use_kernel``
+    and a fail-slow: ``flash_decode`` launched once per layer and token,
+    finite logits, the FALCON onset of the CPU latency loop. (b)
+    ``model.forward(use_kernel=True)`` with the config's window:
+    ``flash_attention`` launched once per layer; in bf16 the plain route's
+    logits are reported; in float32 (weights upcast exactly) every MoE
+    layer's input is kept and its routing recomputed in both routes. The
+    tokens whose top-k sets differ (routing flips) are counted and printed;
+    a primary flip (see ``_routing_flips``) whose k-th and (k+1)-th
+    probabilities lie farther apart than FLIP_GAP in either route fails.
+    Each MoE layer's input rows that no flip of an earlier layer reaches
+    (every row of layer 0), and the logits of the rows before the first
+    flipped token, are held to PARITY_TOL. The model's tensors are released
+    after. Returns the launches of (a) and (b)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(OLMOE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model_lib.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT)),
+                             device="cuda")
+    ref_events = _falcon_reference(cfg, inject=OLMOE_INJECT)
+    need([e[:3] for e in ref_events] == [OLMOE_EVENT],
+         f"the CPU latency loop flags {[e[:3] for e in ref_events]}, expected {[OLMOE_EVENT]}")
+
+    # (a) serving
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _zero_launches()
+    res = serve(cfg, params, prompt, gen=SERVE_GEN, use_kernel=True, inject=[OLMOE_INJECT])
+    torch.cuda.synchronize()
+    serve_launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    need(serve_launches["flash_decode"] == cfg.num_layers * SERVE_GEN,
+         f"flash_decode launched {serve_launches['flash_decode']} times, expected "
+         f"{cfg.num_layers} x {SERVE_GEN}")
+    need(bool(torch.isfinite(res.logits.float()).all()), "olmoe serve: non-finite logits")
+    need(bool(torch.isfinite(res.prefill_logits.float()).all()),
+         "olmoe serve: non-finite prefill logits")
+    need(res.tokens.shape == (SERVE_B, SERVE_GEN), f"olmoe serve: tokens {res.tokens.shape}")
+    got = [(step, ev.root_cause.value, list(ev.components), ev.t_healthy, ev.t_slow)
+           for step, ev in res.events]
+    need(got == ref_events, f"olmoe serve flags {got}, the CPU loop {ref_events}")
+    decode_s = sum(res.step_s)
+    log(f"[16 olmoe] {cfg.name} published width ({n_params / 1e9:.3f} B parameters, bf16, "
+        f"init {init_s:.2f} s), {SERVE_B} requests x ({SERVE_PROMPT} prompt + {SERVE_GEN} "
+        f"generated), use_kernel, inject {OLMOE_INJECT}: launches {serve_launches}; FALCON "
+        f"flags {got[0][1]} on {got[0][2]} at token {got[0][0]} ({got[0][3]:.4f} s -> "
+        f"{got[0][4]:.4f} s), the same as the CPU latency loop; logits finite; card: {card}")
+    log(f"[16 olmoe] prefill {res.prefill_s:.4f} s (host clock, synchronised); decode "
+        f"{SERVE_B * SERVE_GEN / decode_s:.1f} tokens/s on the host clock "
+        f"({decode_s / SERVE_GEN * 1e3:.3f} ms per step, median "
+        f"{statistics.median(res.step_s) * 1e3:.3f} ms); peak memory {peak / 2**30:.2f} GiB; "
+        f"card: {card}")
+    del res, prompt
+
+    # (b) the forward, bf16: kernel route, launches; the plain route beside it
+    window = cfg.sliding_window
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                               (1, FORWARD_LEN)), device="cuda")
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        read = _zero_launches()
+        t0 = time.perf_counter()
+        got, aux = model_lib.forward(params, batch, cfg, window=window, use_kernel=True)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        fwd_launches = read()
+        t0 = time.perf_counter()
+        want, _ = model_lib.forward(params, batch, cfg, window=window)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    need(fwd_launches["flash_attention"] == cfg.num_layers,
+         f"flash_attention launched {fwd_launches['flash_attention']} times, expected "
+         f"{cfg.num_layers}")
+    need(bool(torch.isfinite(aux)), "olmoe forward: non-finite aux loss")
+    worst, _, rel, agree = _logit_diff(torch, got, want, cfg.vocab_size)
+    log(f"[16 olmoe] bf16 forward over (1, {FORWARD_LEN}) tokens, window {window}, "
+        f"use_kernel: launches {fwd_launches}; aux loss {float(aux):.4f}; vs the plain blocked "
+        f"attention: max abs logit diff {worst:.3e}, relative L2 {rel:.3e}, argmax agrees on "
+        f"{agree:.4%} of positions; {kern_s:.3f} s kernel route, {plain_s:.3f} s plain route "
+        f"(host clock); card: {card}")
+    del got, want
+
+    # float32: routing flips counted and bounded, the rows no flip reaches held
+    cfg32 = replace(cfg, dtype="float32")
+    params32 = _as_float(torch, params)
+    del params
+    torch.cuda.empty_cache()
+    routes = {}
+    with torch.no_grad():
+        for name, use_kernel in (("kernel", True), ("plain", False)):
+            records, restore = _routing_recorder(torch)
+            try:
+                logits, _ = model_lib.forward(params32, batch, cfg32, window=window,
+                                              use_kernel=use_kernel)
+            finally:
+                restore()
+            routes[name] = (logits, records)
+    (got, rec_k), (want, rec_p) = routes["kernel"], routes["plain"]
+    need(len(rec_k) == len(rec_p) == cfg.num_layers,
+         f"routing recorded for {len(rec_k)}/{len(rec_p)} layers, expected {cfg.num_layers}")
+    flips = _routing_flips(rec_k, rec_p)
+    primary = [f for f in flips if f[4]]
+    wide = [f for f in primary if max(f[2][0] - f[2][1], f[3][0] - f[3][1]) > FLIP_GAP]
+    log(f"[16 olmoe] float32 forward, kernel vs plain route: routing flips (top-{cfg.top_k} "
+        f"sets that differ) {len(flips)}, {len(primary)} primary, in "
+        f"{len({f[1] for f in flips})} tokens over {len({f[0] for f in flips})} layers: "
+        + ("; ".join(f"layer {layer} token {t}{' (primary)' if first else ''} p_k,p_k+1 "
+                     f"kernel {pk} plain {pp}" for layer, t, pk, pp, first in flips[:12])
+           or "none")
+        + (f" (and {len(flips) - 12} more)" if len(flips) > 12 else ""))
+    in_bad, in_rows = 0, 0
+    for layer, ((xk, _, _), (xp, _, _)) in enumerate(zip(rec_k, rec_p)):
+        reach = min((t for l, t, _, _, _ in flips if l < layer), default=FORWARD_LEN)
+        if reach:
+            in_bad += _logit_diff(torch, xk[:reach], xp[:reach], xk.shape[-1])[1]
+            in_rows += reach
+    first = min((f[1] for f in flips), default=FORWARD_LEN)
+    f_worst, bad, f_rel, f_agree = _logit_diff(torch, got[:, :first], want[:, :first],
+                                               cfg.vocab_size) if first else (0, 0, 0, 1)
+    a_worst, _, a_rel, a_agree = _logit_diff(torch, got, want, cfg.vocab_size)
+    log(f"[16 olmoe] float32 forward over (1, {FORWARD_LEN}), kernel vs plain route: MoE "
+        f"layer inputs, {in_rows} rows no earlier flip reaches: {in_bad} entries outside "
+        f"rtol/atol {PARITY_TOL[0]}/{PARITY_TOL[1]}; logits, the {first} rows before the first "
+        f"flipped token: max abs diff {f_worst:.3e}, {bad} entries outside, relative L2 "
+        f"{f_rel:.3e}, argmax agrees {f_agree:.4%}; all {FORWARD_LEN} rows: max abs "
+        f"{a_worst:.3e}, relative L2 {a_rel:.3e}, argmax agrees {a_agree:.4%}; card: {card}")
+    del routes, got, want, params32, rec_k, rec_p
+    torch.cuda.empty_cache()
+    need(not wide, f"olmoe float32 forward: {len(wide)} primary routing flips with a gap "
+         f"between the k-th and (k+1)-th probabilities above {FLIP_GAP}, more than float32 "
+         f"rounding explains: {wide[:3]}")
+    need(in_bad == 0, f"olmoe float32 forward: {in_bad} MoE-input entries outside tolerance "
+         "in the rows no routing flip reaches")
+    need(bad == 0, f"olmoe float32 forward: {bad} logits outside tolerance in the rows no "
+         "routing flip reaches")
+    return serve_launches, fwd_launches
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -1940,6 +2309,13 @@ def main() -> int:
         rows.append(phase_times_ssd(torch, card, errs, mamba_launches))
         phase_train(torch, np, card)
         rows[0]["campaign_launches"] = phase_campaigns(torch, card)
+        rows[0]["whatif_launches"] = phase_whatif(torch, card)
+        olmoe_serve, olmoe_forward = phase_olmoe(torch, np, card)
+        for row in rows:
+            if row["name"] == "flash_decode":
+                row["olmoe_launches"] = olmoe_serve["flash_decode"]
+            elif row["name"] == "flash_attention":
+                row["olmoe_launches"] = olmoe_forward["flash_attention"]
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
         need(not leaked, f"modules of jax or the JAX package were loaded: {leaked[:5]}")

@@ -6,9 +6,9 @@ leading period axis, the reference's layout. Where the reference runs a
 ``lax.scan`` over periods, the port runs a Python loop over views
 ``blocks[...][i]``.
 
-Mixers are attention and Mamba2 (:mod:`repro_torch.models.ssm`). The
-``moe`` MLP is not ported yet: it raises :class:`NotImplementedError`
-(:data:`NOT_PORTED`).
+Mixers are attention and Mamba2 (:mod:`repro_torch.models.ssm`); MLPs the
+dense SwiGLU and the mixture of experts (:mod:`repro_torch.models.moe`,
+local dispatch). A sub-layer kind outside these raises :class:`ValueError`.
 """
 from __future__ import annotations
 
@@ -17,38 +17,26 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, SubLayer
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.schema import Schema, stack
-
-#: what a moe sub-layer raises until models/moe.py is ported
-NOT_PORTED = (
-    "{kind} sub-layers are not ported yet: models/moe.py is in ROADMAP.md, "
-    "Queue 1, modules still missing"
-)
-
-
-def not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(NOT_PORTED.format(kind=kind))
-
-
-def _check_sublayer(sub: SubLayer) -> None:
-    if sub.mixer not in ("attn", "mamba"):
-        raise not_ported(sub.mixer)
-    if sub.mlp not in ("mlp", None):
-        raise not_ported(sub.mlp)
 
 
 def period_schema(cfg: ArchConfig) -> Schema:
     out: Schema = {}
     for j, sub in enumerate(cfg.period):
-        _check_sublayer(sub)
         entry: Schema = {}
         if sub.mixer == "attn":
             entry["attn"] = attention.attn_schema(cfg)
-        else:
+        elif sub.mixer == "mamba":
             entry["mamba"] = ssm.mamba_schema(cfg)
+        else:
+            raise ValueError(f"{cfg.name}: unknown mixer {sub.mixer!r} in sub{j}")
         if sub.mlp == "mlp":
             entry["mlp"] = layers.mlp_schema(cfg)
+        elif sub.mlp == "moe":
+            entry["moe"] = moe.moe_schema(cfg)
+        elif sub.mlp is not None:
+            raise ValueError(f"{cfg.name}: unknown mlp {sub.mlp!r} in sub{j}")
         out[f"sub{j}"] = entry
     return out
 
@@ -75,7 +63,6 @@ def _apply_sublayer(
     use_kernel: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Residual sub-layer application. Returns (x, aux_loss)."""
-    _check_sublayer(sub)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if sub.mixer == "attn":
         x = x + attention.apply_attention(
@@ -85,6 +72,9 @@ def _apply_sublayer(
         x = x + ssm.apply_mamba(p["mamba"], x, cfg, use_kernel=use_kernel)
     if sub.mlp == "mlp":
         x = x + layers.apply_mlp(p["mlp"], x, cfg)
+    elif sub.mlp == "moe":
+        y, aux = moe.apply_moe(p["moe"], x, cfg)
+        x = x + y
     return x, aux
 
 
@@ -133,11 +123,12 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> dict:
     """Period-stacked ``(shape, dtype)`` of every cache leaf."""
     out: dict = {}
     for j, sub in enumerate(cfg.period):
-        _check_sublayer(sub)
         if sub.mixer == "attn":
             leaves = attention.kv_cache_shape(cfg, batch, max_len)
-        else:
+        elif sub.mixer == "mamba":
             leaves = ssm.ssm_cache_shape(cfg, batch)
+        else:
+            raise ValueError(f"{cfg.name}: unknown mixer {sub.mixer!r} in sub{j}")
         out[f"sub{j}"] = {
             name: ((cfg.n_periods, *shape), dt) for name, (shape, dt) in leaves.items()
         }
@@ -164,7 +155,6 @@ def grow_caches(caches: dict, cfg: ArchConfig, max_len: int) -> dict:
     length and pass through unchanged."""
     out: dict = {}
     for j, sub in enumerate(cfg.period):
-        _check_sublayer(sub)
         key = f"sub{j}"
         c = caches[key]
         if sub.mixer != "attn":
@@ -197,7 +187,6 @@ def decode_blocks(
         period = period_view(blocks, i)
         cache = period_view(caches, i)
         for j, sub in enumerate(cfg.period):
-            _check_sublayer(sub)
             key = f"sub{j}"
             if sub.mixer == "attn":
                 dh, _ = attention.decode_attention(
@@ -211,4 +200,7 @@ def decode_blocks(
             x = x + dh
             if sub.mlp == "mlp":
                 x = x + layers.apply_mlp(period[key]["mlp"], x, cfg)
+            elif sub.mlp == "moe":
+                y, _ = moe.apply_moe(period[key]["moe"], x, cfg)
+                x = x + y
     return x, caches

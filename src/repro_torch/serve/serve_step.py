@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers, model as model_lib, ssm, transformer
+from repro_torch.models import attention, layers, model as model_lib, moe, ssm, transformer
 
 
 def serve_window(cfg: ArchConfig, seq_len: int) -> int:
@@ -72,8 +72,9 @@ def make_prefill_step(cfg: ArchConfig, seq_len: int) -> Callable:
                 cache_out[key] = c
                 if sub.mlp == "mlp":
                     h = h + layers.apply_mlp(p["mlp"], h, cfg)
-                elif sub.mlp is not None:
-                    raise transformer.not_ported(sub.mlp)
+                elif sub.mlp == "moe":
+                    y, _ = moe.apply_moe(p["moe"], h, cfg)
+                    h = h + y
             per_period.append(cache_out)
         caches = {
             key: {name: torch.stack([c[key][name] for c in per_period])

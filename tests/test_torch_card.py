@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels against
 their plain PyTorch versions, the kernel-backed fleet screen against the
-numpy backend, and the serve path's kernel route against its plain route.
+numpy backend, the serve path's kernel route against its plain route, an
+MoE layer on the card against the CPU, and the what-if layer's committed
+attribution sidecar regenerated on the card.
 Each skips without a card; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
@@ -315,6 +317,7 @@ def _close(got, want, dtype):
     (3, 128, 4, 2, 32, 1),         # one valid position
     (2, 1000, 16, 4, 128, 999),    # Skv not a multiple of a split
     (2, 64, 4, 2, 64, 0),          # nothing valid: zeros
+    (8, 1088, 16, 16, 128, 1088),  # MHA, rep 1: the OLMoE serve shape
 ])
 def test_flash_decode_kernel_matches_plain_version(card, dtype, b, skv, h, kvh, hd, valid):
     q = _normal(card, 1, (b, h, hd), dtype)
@@ -739,3 +742,66 @@ def test_campaign_on_card_decides_like_the_committed_report(card):
     assert _decisions(want["event_log"])
     for block in ("detection", "mitigation", "episodes", "diagnoses"):
         assert got[block] == want[block], block
+
+
+@pytest.mark.parametrize("t", [8, 256])
+def test_moe_layer_on_card_equals_cpu_plain_version(card, t):
+    """One MoE layer (64 experts, top 8, capacity 1.25: the OLMoE router's
+    shape at a narrow width) on the card and on the CPU in float32, from
+    the same weights and tokens: the same routing and kept mask, outputs
+    within float32 summation order; two card runs give the same bits (the
+    combine adds in a fixed order, no atomics). t = 8 is a decode step,
+    where capacity 2 drops most choices."""
+    from dataclasses import replace
+
+    from repro_torch.models import layers, moe
+
+    cfg = replace(get_config("olmoe-1b-7b").smoke(), dtype="float32", num_experts=64,
+                  top_k=8, moe_d_ff=64)
+    rng = np.random.default_rng(11)
+    host = {name: torch.as_tensor(rng.normal(size=pdef.shape) / np.sqrt(pdef.shape[-2]),
+                                  dtype=torch.float32)
+            for name, pdef in moe.moe_schema(cfg).items() if name != "norm"}
+    host["norm"] = torch.ones(cfg.d_model)
+    x = torch.as_tensor(rng.normal(size=(1, t, cfg.d_model)), dtype=torch.float32)
+    dev = {name: v.to(card) for name, v in host.items()}
+
+    def plan(params, xs):
+        hn = layers.rmsnorm(xs, params["norm"], cfg.norm_eps).reshape(t, -1)
+        _, idx, _ = moe.route(hn @ params["router"], cfg.top_k, n_real=cfg.num_experts)
+        order, _, _, keep, _ = moe.dispatch(idx, cfg)
+        return idx.cpu(), order.cpu(), keep.cpu()
+
+    with torch.no_grad():
+        want, aux_want = moe.apply_moe(host, x, cfg)
+        got, aux = moe.apply_moe(dev, x.to(card), cfg)
+        again, _ = moe.apply_moe(dev, x.to(card), cfg)
+        plan_cpu, plan_card = plan(host, x), plan(dev, x.to(card))
+    for a, b in zip(plan_card, plan_cpu):
+        assert torch.equal(a, b)
+    keep = plan_card[2]
+    assert bool(keep.any()) and (t > 8 or not bool(keep.all()))
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(aux_want), rtol=1e-6)
+
+
+def test_whatif_leave_one_out_on_card_equals_committed_sidecar(card, tmp_path, monkeypatch):
+    """``python -m repro_torch.launch.whatif --report <single_gpu_throttle>
+    --leave-one-out`` with the default device (the card: the CUDA
+    ``bocd_step`` screen in float32): the committed attribution sidecar,
+    byte for byte, with the screen launched through the kernel."""
+    import os
+
+    from repro_torch.launch import whatif
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.chdir(root)
+    before = bk.bocd_step.launches
+    out = tmp_path / "att.json"
+    assert whatif.main(["--report", "results/campaigns/single_gpu_throttle-j1-s0.json",
+                        "--leave-one-out", "--quiet", "--out", str(out)]) == 0
+    assert bk.bocd_step.launches > before
+    with open(os.path.join(root, "results", "campaigns",
+                           "single_gpu_throttle-j1-s0.attribution.json"), "rb") as f:
+        assert out.read_bytes() == f.read()

@@ -1,8 +1,9 @@
 """The port stands alone: importing ``repro_torch``, running a control
 plane tick, serving one smoke-size prefill + decode step, taking one
 smoke-size training step, scoring one campaign and writing its
-observability sidecars load neither jax nor the JAX package (checked in a
-fresh interpreter), and the default entry points want the card."""
+observability sidecars, and replaying one what-if variant load neither jax
+nor the JAX package (checked in a fresh interpreter), and the default entry
+points want the card."""
 import os
 import subprocess
 import sys
@@ -66,6 +67,14 @@ _PROGRAM = textwrap.dedent("""
         paths = write_sidecars(spec, runs, report, out_dir=out)
         assert sorted(paths) == ["metrics", "trace"], paths
     assert render_dashboard(report).count("<svg") == 3
+
+    from repro_torch.launch import whatif  # noqa: F401
+    from repro_torch.whatif import Variant, WhatIfEngine
+
+    engine = WhatIfEngine.from_report(report, device="cpu")
+    gids = engine.episodes_by_cause()["gpu_degradation"]
+    run = engine.run_variant("falcon", Variant(drop_episodes=frozenset(gids)))
+    assert engine.stats["variants"] == 1 and run.outcomes, engine.stats
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "repro" or m.startswith("repro."))

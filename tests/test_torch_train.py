@@ -82,7 +82,8 @@ def tree_np(tree):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "falcon-demo-100m", "qwen2-vl-72b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                  "jamba-1.5-large-398b"])
 def test_make_batch_is_bit_identical(arch):
     cfg_j = jconfigs.get_config(arch).smoke()
     cfg_t = tconfigs.get_config(arch).smoke()
@@ -284,6 +285,45 @@ def test_trainer_matches_jax_trainer(arch, tmp_path):
     for (path, got), want in zip(tadamw.leaves(tr_t.params), jax.tree.leaves(tr_j.params)):
         assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16, path
         np.testing.assert_allclose(f32(got), f32(want), rtol=2 ** -6, atol=1e-5, err_msg=path)
+
+
+def test_moe_trainer_matches_jax_trainer(tmp_path):
+    """olmoe-1b-7b (attention + 4 experts top 2 at smoke size, the aux loss
+    in the objective): the losses step by step, the event log and the
+    strategies as for the dense archs. The trained parameters are held by
+    the count of weights farther apart than two bfloat16 steps as above: at
+    most 1e-5 of all weights (measured here: one among 1.6 million, parted
+    by 1.8e-4, a near-zero gradient whose sign decided several steps). That
+    count is the check. The per-leaf bound beside it, the learning rates
+    summed over the run (plus their decay terms), only rules out a leaf
+    that did not train: AdamW steps of opposite sign can part two weights
+    by that much, so it holds for any two sound runs."""
+    arch = "olmoe-1b-7b"
+    tr_j, tr_t = trainers(arch, tmp_path, STEPS)
+    hist_j = tr_j.run(STEPS)
+    hist_t = tr_t.run(STEPS)
+    losses_j = np.array([r.loss for r in hist_j])
+    losses_t = np.array([r.loss for r in hist_t])
+    assert np.isfinite(losses_t).all()
+    np.testing.assert_allclose(losses_t, losses_j, **LOSS_TOL)
+    for a, b in zip(hist_t, hist_j):
+        assert (a.step, a.iter_time, a.wall_time, a.strategy) == \
+            (b.step, b.iter_time, b.wall_time, b.strategy)
+    assert tr_t.allocation == tr_j.allocation
+    assert json.dumps(trecords(tr_t.control.events), sort_keys=True) == \
+        json.dumps(jrecords(tr_j.control.events), sort_keys=True)
+    applied = [r.strategy for r in hist_t if r.strategy]
+    assert applied[:3] == ["IGNORE", "ADJUST_MICROBATCH", "ADJUST_TOPOLOGY"], applied
+    lr_sum = sum(float(tadamw.schedule(tr_t.opt_cfg, torch.tensor(s, dtype=torch.int32)))
+                 for s in range(STEPS)) * (1 + 2 * tr_t.opt_cfg.weight_decay)
+    far, total = 0, 0
+    for (path, got), want in zip(tadamw.leaves(tr_t.params), jax.tree.leaves(tr_j.params)):
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16, path
+        g, w = f32(got), f32(want)
+        assert np.abs(g - w).max() <= lr_sum, (path, np.abs(g - w).max(), lr_sum)
+        far += int((np.abs(g - w) > 2 ** -6 * np.abs(w) + 1e-5).sum())
+        total += g.size
+    assert far <= 1e-5 * total, (far, total)
 
 
 def test_ckpt_restart_shim_restores_the_same_parameters(tmp_path):
