@@ -114,12 +114,43 @@ order:
     launched 16 times, the bf16 plain route reported; in float32 (weights
     upcast) each MoE layer's routing recomputed in both routes, the routing
     flips counted and printed, and the logits of the rows no flip reaches
-    held to PARITY_TOL. The model's tensors are released after.
+    held to PARITY_TOL. The model's tensors are released after;
+17. the four example twins (``examples/torch_*.py``) through their
+    ``main`` on the card, each ending with its reference's asserts:
+    ``torch_train_100m_falcon`` at falcon-demo-100m's published width (8
+    layers, d_model 768, 12/4 heads, 32k vocab) for 200 steps on the (2 TP,
+    4 DP, 2 PP) simulator, loss decreasing, its strategy timeline and event
+    log equal to a CPU replay of the same simulator, injector and control
+    plane, ``cell_reduce`` launched; ``torch_quickstart``,
+    ``torch_detect_from_trace`` and ``torch_serve_decode``. The twins follow
+    their references, so ``cell_reduce`` is the one kernel on these paths:
+    the trainers' per-job detector is the host's scalar BOCD, the detect
+    twin is host work and the serve twin decodes on the plain route;
+18. the mesh on the one card: 4 spawned ranks joined by gloo on CUDA
+    tensors (NCCL refuses two ranks on one device), the collectives gloo
+    serves for them probed and printed; in float32 to PARITY_TOL: (A)
+    granite-3-8b at published width and depth over (data 1, model 4),
+    heads sharded, B 8 and a 1,088-slot cache, 8 decode steps with the
+    kernel route, logits equal to the unsharded plain route's (run first in
+    a child process and freed), ``flash_decode`` launched 40 x 8 times on
+    every rank, the decode ms a step sharded and unsharded and the gloo
+    share printed; (B) granite-20b smoke (kv 1) with the cache sequence
+    sharded over model (B 4) and folded over (data, model) (B 1), both
+    routes, equal to the unsharded plain route; (C) one olmoe-1b-7b MoE
+    layer at published width, expert-parallel over (data 2, model 2) at
+    capacity factor 8, equal to the local dispatch; (D) one adaptive step of
+    falcon-demo-100m at published width over (data 2, model 2) with counts
+    [4, 2], equal to the one-process weighted step and each leaf's change
+    within MESH_STEP_RTOL of the one-process change (the step at counts
+    [1, 1] must miss it); (E) ``remap_mesh``.
 
 Any failure exits non-zero. The last two lines are a JSON object with one
 entry per kernel (``bocd_step``'s also carries ``campaign_launches`` and
 ``whatif_launches``, its launches in phases 14 and 15; ``flash_decode``'s
-and ``flash_attention``'s ``olmoe_launches``, theirs in phase 16) and
+and ``flash_attention``'s ``olmoe_launches``, theirs in phase 16; every
+kernel's ``example_launches``, its launches over the twins of phase 17;
+``flash_decode``'s ``mesh_launches``, its launches over the ranks of
+phase 18 (A)) and
 ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the JAX package: the card's machine has neither.
 """
@@ -151,12 +182,13 @@ PIPELINE_TICKS = 400
 
 # cell_reduce: the pipeline's (pp, dp, tp); (2, 2, 2); the Llama 3 405B
 # pretraining layout (16,384 GPUs, TP 8, PP 16, DP 128; arXiv:2407.21783,
-# Table 4; 288 KB of float64 cells); and the same at DP 1,024, whose blocks
-# take their 128 dp columns in several passes.
+# Table 4; 288 KB of float64 cells); the same at DP 1,024, whose blocks
+# take their 128 dp columns in several passes; and (2, 4, 2), the
+# (2 TP, 4 DP, 2 PP) job of phase 17's train twin.
 # Gates: the kernel's device median at (8, 160, 8) on the packed float64
 # cells, and one evaluation with the host included, packed route against
 # the unpacked one (five float32 copies, the kernel, cat, .cpu()) in turns.
-CELL_SHAPES = ((8, 160, 8), (2, 2, 2), (16, 128, 8), (16, 1024, 8))
+CELL_SHAPES = ((8, 160, 8), (2, 2, 2), (16, 128, 8), (16, 1024, 8), (2, 4, 2))
 CELL_GATE_MS = 0.007
 CELL_EARLIER_MS = 0.0139   # the first, one-block design of the kernel, (8, 160, 8) float32
 EVAL_RATIO, EVAL_RUNS = 0.5, 60
@@ -555,6 +587,7 @@ DECODE_CASES = (   # label, B, Skv, H, KVH, hd, valid_len
     ("per-sequence with zeros", 4, 300, 8, 2, 128, [0, 5, 0, 300]),
     ("Skv 1,000 off the split grid", 2, 1000, 16, 4, 128, 999),
     ("MHA rep 1 (the OLMoE serve shape)", 8, 1088, 16, 16, 128, 1088),
+    ("a rank of granite-3-8b over model 4 (phase 18)", 8, 1088, 8, 2, 128, 1025),
 )
 ATTENTION_CASES = (   # label, B, Sq, Skv, H, KVH, hd, causal, window
     ("causal GQA", 1, 256, 256, 4, 2, 64, True, 0),
@@ -2266,6 +2299,667 @@ def phase_olmoe(torch, np, card):
     return serve_launches, fwd_launches
 
 
+# ------------------------------------------------------------------ phase 17
+TWINS = ("torch_detect_from_trace", "torch_quickstart", "torch_serve_decode",
+         "torch_train_100m_falcon")
+TWIN_CKPT = ROOT / "build" / "chip_smoke_twins"
+
+
+def _load_twin(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_twin_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _twin_replay(torch, mod, steps):
+    """The train twin's simulator, injector and control plane on the CPU,
+    the trainer's model step replaced by one that returns its inputs: the
+    timeline and the event log without the model."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.controlplane import event_log_records
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import FalconTrainer
+
+    sim = mod.make_simulator("cpu")
+    trainer = FalconTrainer(
+        cfg=get_config("falcon-demo-100m").smoke(),
+        data=DataConfig(seq_len=64, global_batch=8, slots=2, dp_groups=4),
+        opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=20), perf_model=sim,
+        injector=mod.make_injector(sim.healthy_iteration_time()), falcon_enabled=True,
+        ckpt_dir=str(TWIN_CKPT), device="cpu")
+    trainer._step_fn = lambda p, o, b: (p, o, {"loss": torch.zeros(())})
+    hist = trainer.run(steps)
+    return (event_log_records(trainer.control.events),
+            [(r.step, r.strategy) for r in hist if r.strategy])
+
+
+def phase_examples(torch, np, card, dev="cuda"):
+    """The four example twins on the card through their ``main``, each
+    with its reference's asserts; the train twin at falcon-demo-100m's
+    published width for 200 steps, its timeline and event log held to a
+    CPU replay of the same simulator, injector and control plane, with
+    ``cell_reduce`` launched. The twins follow their references, so no
+    other kernel is on these paths: the trainers' per-job detector is the
+    host's scalar BOCD (no ``bocd_step``), the detect twin is host work,
+    the serve twin decodes on the plain route (no ``flash_decode``) and the
+    quickstart's (tp 1) simulator needs no reduction kernel. Launches are
+    zeroed just before each twin and read just after. Returns them by
+    twin."""
+    import contextlib
+    import io
+
+    from repro_torch.controlplane import event_log_records
+
+    out = {}
+    on_card = torch.device(dev).type == "cuda"   # the plain versions launch nothing
+    for name in TWINS:
+        mod = _load_twin(name)
+        argv = ["--device", dev]      # the detect twin, host work, takes no options
+        if name == "torch_train_100m_falcon":
+            argv += ["--ckpt-dir", str(TWIN_CKPT)]
+        buf = io.StringIO()
+        _sync(torch, dev)
+        read = _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = mod.main() if name == "torch_detect_from_trace" else mod.main(argv)
+        except AssertionError as exc:
+            raise SmokeError(f"{name}: its reference's assert failed: {exc}") from exc
+        _sync(torch, dev)
+        secs = time.perf_counter() - t0
+        launches = read()
+        lines = buf.getvalue().splitlines()
+        need(lines and lines[-1].endswith(" OK"), f"{name} did not end with OK: {lines[-3:]}")
+        for line in lines:
+            if line.strip():
+                log(f"[17 {name}] {line}")
+        log(f"[17 {name}] {secs:.2f} s on {dev}; launches {launches}; card: {card}")
+        if name == "torch_train_100m_falcon":
+            need(res.params["embed"]["tok"].device.type == torch.device(dev).type,
+                 f"the twin's parameters are not on {dev}")
+            need(not on_card or launches["cell_reduce"] > 0,
+                 f"train twin: cell_reduce not launched: {launches}")
+            want_log, want_plan = _twin_replay(torch, mod, len(res.history))
+            got_log = event_log_records(res.control.events)
+            got_plan = [(r.step, r.strategy) for r in res.history if r.strategy]
+            need(got_plan == want_plan, f"train twin timeline {got_plan}, CPU replay {want_plan}")
+            need(json.dumps(got_log, sort_keys=True) == json.dumps(want_log, sort_keys=True),
+                 "train twin: the event log differs from the CPU replay")
+            secs_step = res.step_seconds
+            log(f"[17 train] timeline {got_plan} and {len(got_log)} event-log records equal "
+                f"the CPU replay; {len(secs_step)} steps, median {statistics.median(secs_step[1:]):.4f} "
+                f"s a step (host clock, synchronised); card: {card}")
+        out[name] = launches
+    return out
+
+
+# ------------------------------------------------------------------ phase 18
+# The mesh on the one card: MESH_WORLD ranks (spawned processes) joined by a
+# gloo process group on CUDA tensors (NCCL refuses two ranks on one device;
+# gloo stages each collective through the host). Sizes: "full" for this
+# script, "smoke" for tests/test_torch_card.py.
+MESH_WORLD = 4
+MESH_PERM = [2, 0, 3, 1]
+MESH_COUNTS = [4, 2]
+#: AdamW with eps 1: at step 1 the update is linear in the gradient, so a
+#: gradient within rounding of 0 cannot move a parameter by +-lr (Adam's
+#: sign-like first step) on the all-reduce order alone; no weight decay, so
+#: the whole change of a parameter comes from its gradient
+MESH_OPT = dict(lr=1e-2, eps=1.0, warmup_steps=0, weight_decay=0.0)
+#: (D) holds each leaf's change (the step's parameters less the start) to
+#: the one-process step's change, relative to the latter's norm
+MESH_STEP_RTOL = 1e-3
+MESH_SIZES = {
+    # granite-3-8b at published width and depth: B 8, cache 1,088 slots,
+    # decode from position 1,024; olmoe-1b-7b's MoE layer on 4 x 256 tokens
+    "full": dict(smoke=False, b=8, prompt=1024, steps=8, slots=1088, moe_tokens=(4, 256),
+                 seq20=64),
+    "smoke": dict(smoke=True, b=4, prompt=24, steps=2, slots=32, moe_tokens=(4, 16), seq20=64),
+}
+COLLECTIVES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single", "barrier")
+
+
+def _mesh_cfg(name, size, **kw):
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(name)
+    if MESH_SIZES[size]["smoke"]:
+        cfg = cfg.smoke()
+    return replace(cfg, dtype="float32", **kw)
+
+
+def _seeded(torch, shape, seed, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev)
+
+
+def _mesh_caches(torch, cfg, b, s, dev):
+    """Full float32 cache leaves from fixed seeds, one at a time:
+    ``(sub-layer key, leaf name, tensor)``."""
+    from repro_torch.models import transformer
+
+    for i, (key, leaves) in enumerate(sorted(transformer.cache_shapes(cfg, b, s).items())):
+        for j, (n, (shape, _)) in enumerate(sorted(leaves.items())):
+            yield key, n, _seeded(torch, shape, 100 + 10 * i + j, dev)
+
+
+def _cache_tree(triples):
+    out: dict = {}
+    for key, n, t in triples:
+        out.setdefault(key, {})[n] = t
+    return out
+
+
+def _mesh_tokens(np, cfg, size):
+    sz = MESH_SIZES[size]
+    return np.random.default_rng(7).integers(0, cfg.vocab_size, (sz["steps"], sz["b"], 1))
+
+
+def _mesh_reference(size, dev, path):
+    """The unsharded float32 decode of the granite-3-8b check, in its own
+    process (freed before the ranks start): the plain route's logits of
+    each step to ``path`` (.npy); then, from fresh caches, the kernel
+    route's, and the host seconds of each of its steps, beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.serve_step import make_decode_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sz = MESH_SIZES[size]
+    cfg = _mesh_cfg("granite-3-8b", size)
+    params = model_lib.init_params(cfg, 0, device=dev)     # float32 draws cast to bf16
+    params = _to_f32(params)                                 # upcast exactly
+    _free(torch, dev)
+    toks = _mesh_tokens(np, cfg, size)
+    for use_kernel, name in ((False, ""), (True, "_kernel")):
+        caches = _cache_tree(_mesh_caches(torch, cfg, sz["b"], sz["slots"], dev))
+        step = make_decode_step(cfg, sz["slots"], use_kernel=use_kernel)
+        logits, secs = [], []
+        with torch.no_grad():
+            for i in range(sz["steps"]):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                out, caches = step(params, torch.as_tensor(toks[i], device=dev), caches,
+                                   sz["prompt"] + i)
+                _sync(torch, dev)
+                secs.append(time.perf_counter() - t0)
+                logits.append(out.float().cpu().numpy())
+        del caches
+        _free(torch, dev)
+        np.save(str(path).replace(".npy", f"{name}.npy"), np.stack(logits))
+        np.save(str(path).replace(".npy", f"{name}_secs.npy"), np.asarray(secs))
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _init_shards(torch, cfg, seed, mesh, dev):
+    """This rank's float32 shards of ``init_params(cfg, seed)`` as DTensors
+    placed by ``param_specs``: each leaf drawn whole from its own generator
+    (the values ``init_params`` gives), sliced, and freed."""
+    from repro_torch.models.model import model_schema
+    from repro_torch.models.schema import _stable_hash, init_leaf
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding.manual import as_dtensor
+
+    sizes, coord = part.axis_sizes(mesh), part.coordinate(mesh)
+
+    def walk(schema, specs, path):
+        out = {}
+        for name, sub in sorted(schema.items()):
+            p = f"{path}/{name}"
+            if isinstance(sub, dict):
+                out[name] = walk(sub, specs[name], p)
+                continue
+            gen = torch.Generator(device=dev)
+            gen.manual_seed((seed << 31) | _stable_hash(p))
+            full = init_leaf(sub, gen, dev)
+            local = full[part.shard_slices(full.shape, specs[name], sizes, coord)].float()
+            out[name] = as_dtensor(local.contiguous(), specs[name], mesh, shape=full.shape)
+            del full, local
+            _free(torch, dev)      # the next rank's whole leaves need the room
+        return out
+
+    return walk(model_schema(cfg), part.param_specs(cfg, mesh), "")
+
+
+def _mesh_rank(rank, world, init, workdir, size, dev):
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        if torch.device(dev).type == "cuda":
+            torch.cuda.set_device(0)
+        torch.set_num_threads(2)          # four ranks share the host's cores
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            res = _mesh_checks(torch, rank, world, size, dev, workdir)
+        finally:
+            dist.destroy_process_group()
+        with open(Path(workdir) / f"rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(Path(workdir) / f"error{rank}.txt", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _diff(torch, got, want, vocab=None):
+    """(max abs difference, entries outside PARITY_TOL) of two tensors."""
+    if vocab is not None:
+        got, want = got[..., :vocab], want[..., :vocab]
+    g, w = got.double(), want.double()
+    if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
+        return float("inf"), -1
+    d = (g - w).abs()
+    rtol, atol = PARITY_TOL
+    return float(d.max()), int((d > atol + rtol * w.abs()).sum())
+
+
+def _mesh_checks(torch, rank, world, size, dev, workdir):
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib, moe
+    from repro_torch.models.schema import init_tree
+    from repro_torch.optim import adamw
+    from repro_torch.serve.serve_step import make_decode_step
+    from repro_torch.sharding import set_mesh
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding.manual import as_dtensor, gather
+    from repro_torch.train.train_step import make_adaptive_train_step
+    from repro_torch.train.trainer import remap_mesh
+
+    sz = MESH_SIZES[size]
+    res = {}
+
+    # Which collectives gloo serves for this device's tensors.
+    probe = {}
+    for op in COLLECTIVES:
+        t = torch.ones(8, device=dev)
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(t)
+            elif op == "broadcast":
+                dist.broadcast(t, 0)
+            elif op == "all_gather":
+                dist.all_gather([torch.empty_like(t) for _ in range(world)], t)
+            elif op == "all_gather_into_tensor":
+                dist.all_gather_into_tensor(torch.empty(8 * world, device=dev), t)
+            elif op == "reduce_scatter_tensor":
+                dist.reduce_scatter_tensor(torch.empty(2, device=dev), t)
+            elif op == "all_to_all_single":
+                dist.all_to_all_single(torch.empty_like(t), t)
+            else:
+                dist.barrier()
+            _sync(torch, dev)
+            probe[op] = "served"
+        except (RuntimeError, ValueError, NotImplementedError) as exc:
+            probe[op] = f"refused: {str(exc).splitlines()[0][:100]}"
+    res["collectives"] = probe
+    dist.barrier()
+
+    # (A) granite-3-8b over (data 1, model 4), KV heads sharded, the kernel route.
+    cfg = _mesh_cfg("granite-3-8b", size)
+    mesh = make_host_mesh(1, world, device=dev)
+    s_total = sz["slots"]
+    cspecs = part.cache_specs(cfg, mesh, sz["b"])
+    sizes, coord = part.axis_sizes(mesh), part.coordinate(mesh)
+    for turn in range(world):      # one rank draws its whole leaves at a time
+        if turn == rank:
+            params = _init_shards(torch, cfg, 0, mesh, dev)
+            caches = {}
+            for key, n, full in _mesh_caches(torch, cfg, sz["b"], s_total, dev):
+                local = full[part.shard_slices(full.shape, cspecs[key][n], sizes, coord)]
+                caches.setdefault(key, {})[n] = as_dtensor(local.contiguous(), cspecs[key][n],
+                                                           mesh, shape=full.shape)
+                del full, local
+                _free(torch, dev)
+        dist.barrier()
+    step = make_decode_step(cfg, s_total, use_kernel=True)
+    toks = _mesh_tokens(np, cfg, size)
+    tspec = part.decode_token_specs(cfg, mesh, sz["b"])
+    gloo_s = [0.0]
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **k):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            _sync(torch, dev)
+            gloo_s[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    local_logits, secs = [], []
+    with set_mesh(mesh), torch.no_grad():
+        for name, fn in real.items():
+            setattr(dist, name, timed(fn))
+        try:
+            fd.launches = 0
+            for i in range(sz["steps"]):
+                tok = part.distribute(torch.as_tensor(toks[i], device=dev), tspec, mesh)
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                logits, caches = step(params, tok, caches, sz["prompt"] + i)
+                _sync(torch, dev)
+                secs.append(time.perf_counter() - t0)
+                local_logits.append(logits.to_local().clone())
+            launches = fd.launches
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        lspec = part.spec_of(logits)
+        full_logits = [gather(t, lspec, mesh) for t in local_logits]
+    res["decode"] = {"launches": launches, "secs": secs, "gloo_s": gloo_s[0],
+                     "layers": cfg.num_layers,
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                  if torch.device(dev).type == "cuda" else 0.0)}
+    if rank == 0:
+        want = torch.as_tensor(np.load(Path(workdir) / "reference.npy"), device=dev)
+        diffs = [_diff(torch, got.float(), want[i], cfg.vocab_size)
+                 for i, got in enumerate(full_logits)]
+        # The unsharded kernel route against the plain one, for the log.
+        kern = torch.as_tensor(np.load(Path(workdir) / "reference_kernel.npy"), device=dev)
+        kdiffs = [_diff(torch, kern[i], want[i], cfg.vocab_size) for i in range(len(kern))]
+        res["decode"].update(
+            max_err=max(d[0] for d in diffs), bad=sum(d[1] for d in diffs),
+            unsharded_kernel_err=max(d[0] for d in kdiffs),
+            ref_secs=np.load(Path(workdir) / "reference_kernel_secs.npy").tolist(),
+            plain_secs=np.load(Path(workdir) / "reference_secs.npy").tolist())
+    del params, caches, local_logits, full_logits
+    _free(torch, dev)
+    dist.barrier()
+
+    # (B) the sequence-sharded cache on kv = 1 (granite-20b smoke) over (2, 2).
+    mesh = make_host_mesh(2, world // 2, device=dev)
+    cfg = _mesh_cfg("granite-20b", "smoke")
+    params = {k: v for k, v in model_lib.init_params(cfg, 0, device=dev).items()}
+    params = _to_f32(params)
+    seq = sz["seq20"]
+    caches0 = _cache_tree(_mesh_caches(torch, cfg, 4, seq, dev))
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size, (2, 4, 1))
+    out_b = []
+    for b, kern in ((4, False), (4, True), (1, False), (1, True)):
+        full = {k: {n: t[:, :b].clone() for n, t in c.items()} for k, c in caches0.items()}
+        ref = {k: {n: t.clone() for n, t in c.items()} for k, c in full.items()}
+        dist_c = part.distribute(full, part.cache_specs(cfg, mesh, b), mesh)
+        dist_p = part.distribute(params, part.param_specs(cfg, mesh), mesh)
+        step = make_decode_step(cfg, seq, use_kernel=kern)
+        plain = make_decode_step(cfg, seq)     # the unsharded plain route
+        err, bad = 0.0, 0
+        with torch.no_grad():
+            fd.launches = 0
+            for i, pos in enumerate((seq - 21, seq - 20)):
+                tok = torch.as_tensor(toks[i, :b], device=dev)
+                with set_mesh(mesh):
+                    lg, dist_c = step(dist_p, part.distribute(tok, part.decode_token_specs(
+                        cfg, mesh, b), mesh), dist_c, pos)
+                    lg = gather(lg.to_local(), part.spec_of(lg), mesh)
+                want, ref = plain(params, tok, ref, pos)
+                e, k = _diff(torch, lg, want, cfg.vocab_size)
+                err, bad = max(err, e), bad + k
+            launches_b = fd.launches
+            for key, c in dist_c.items():
+                for n, t in c.items():
+                    e, k = _diff(torch, gather(t.to_local(), part.spec_of(t), mesh), ref[key][n])
+                    err, bad = max(err, e), bad + k
+        out_b.append({"b": b, "kernel": kern, "max_err": err, "bad": bad,
+                      "launches": launches_b,
+                      "cache_spec": str(part.cache_specs(cfg, mesh, b)["sub0"]["k"])})
+    res["seq_shard"] = out_b
+    del params, caches0
+    dist.barrier()
+
+    # (C) one olmoe-1b-7b MoE layer over (2, 2), capacity factor 8 (no drops).
+    cfg = _mesh_cfg("olmoe-1b-7b", size, capacity_factor=8.0)
+    params = _to_f32(init_tree(moe.moe_schema(cfg), 0, dev))
+    nb, ns = sz["moe_tokens"]
+    x = _seeded(torch, (nb, ns, cfg.d_model), 5, dev)
+    with torch.no_grad():
+        y_ref, _ = moe.apply_moe(params, x, cfg)
+        # The EP aux loss is the mean of each data shard's own (the
+        # reference's pmean over the batch axes), not the whole batch's.
+        half = nb // 2
+        aux_ref = sum(moe.apply_moe(params, x[d * half:(d + 1) * half], cfg)[1]
+                      for d in range(2)) / 2
+        with set_mesh(mesh):
+            y, aux = moe.apply_moe(params, x, cfg)
+    e, k = _diff(torch, y, y_ref)
+    ea, ka = _diff(torch, aux.reshape(1), aux_ref.reshape(1))
+    res["moe"] = {"max_err": e, "bad": k, "aux_err": ea, "aux_bad": ka,
+                  "tokens": nb * ns, "experts": cfg.num_experts, "e_local": cfg.padded_experts // 2}
+    del params, x, y, y_ref
+    dist.barrier()
+
+    # (D) one adaptive step of falcon-demo-100m over (2, 2), counts [4, 2].
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    cfg = _mesh_cfg("falcon-demo-100m", size)
+    opt = adamw.AdamWConfig(**MESH_OPT)
+    data = DataConfig(seq_len=64, global_batch=8, slots=4, dp_groups=2)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, data, 0).items()}
+    params = _to_f32(model_lib.init_params(cfg, 0, device=dev))
+    p2, _, m = make_adaptive_train_step(cfg, opt, mesh)(params, adamw.init(params), batch,
+                                                        MESH_COUNTS)
+    res["adaptive"] = {"loss": float(m["loss"])}
+    if rank == 0:
+        start = dict(adamw.leaves(_to_f32(model_lib.init_params(cfg, 0, device=dev))))
+        one, one_loss = _one_process_step(torch, cfg, opt, batch, MESH_COUNTS, dev)
+        # The control: the step at counts [1, 1] must fail the same check.
+        control, _ = _one_process_step(torch, cfg, opt, batch, [1] * len(MESH_COUNTS), dev)
+        got = {path: t.detach() for path, t in adamw.leaves(p2)}
+        err, bad = 0.0, 0
+        for path, t in got.items():
+            e, k = _diff(torch, t, one[path])
+            err, bad = max(err, e), bad + k
+        res["adaptive"].update(
+            max_err=err, bad=bad, leaves=len(one), one_loss=one_loss,
+            moved=sum(int(not torch.equal(t, start[path])) for path, t in got.items()),
+            step_err=_step_err(got, one, start), control_err=_step_err(control, one, start))
+    del params, p2, batch
+    dist.barrier()
+
+    # (E) remap_mesh with a permutation.
+    new = remap_mesh(mesh, MESH_PERM)
+    res["remap"] = {"coord": list(mesh.get_coordinate()), "new": list(new.get_coordinate()),
+                    "ranks": new.mesh.tolist()}
+    return res
+
+
+def _to_f32(tree):
+    """``tree``'s leaves upcast to float32 in place, one at a time (each
+    bf16 leaf is freed as its copy is made), and ``tree``."""
+    for k, v in tree.items():
+        tree[k] = _to_f32(v) if isinstance(v, dict) else v.float()
+    return tree
+
+
+def _step_err(got, want, start):
+    """The largest, over leaves, of |(got - start) - (want - start)| /
+    |want - start| (Frobenius norms, float64): how far a step's change of
+    the parameters is from the wanted change."""
+    worst = 0.0
+    for path, w in want.items():
+        dw = w.double() - start[path].double()
+        dg = got[path].double() - start[path].double()
+        worst = max(worst, float((dg - dw).norm() / dw.norm().clamp_min(1e-300)))
+    return worst
+
+
+def _one_process_step(torch, cfg, opt, batch, counts, dev):
+    """The weighted-gradient step in one process: group g's first counts[g]
+    slots of its columns, the gradients summed, divided by sum(counts)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import _unflatten
+
+    params = _to_f32(model_lib.init_params(cfg, 0, device=dev))
+    paths, flat = zip(*adamw.leaves(params))
+    for p in flat:
+        p.requires_grad_(True)
+    gsum = [torch.zeros_like(p) for p in flat]
+    cols = batch["tokens"].shape[1] // len(counts)
+    total = 0.0
+    for g, m in enumerate(counts):
+        for i in range(m):
+            mb = {k: v[i, g * cols:(g + 1) * cols] for k, v in batch.items()}
+            loss, _ = model_lib.loss_fn(params, mb, cfg)
+            for acc, gr in zip(gsum, torch.autograd.grad(loss, flat)):
+                acc.add_(gr)
+            total += float(loss.detach())
+    grads = _unflatten(paths, [g / sum(counts) for g in gsum])
+    params, _ = adamw.update(opt, grads, adamw.init(params), params)
+    return {k: v.detach() for k, v in adamw.leaves(params)}, total / sum(counts)
+
+
+def _run_procs(target, args_list, timeout, what):
+    """Start one spawned process per argument tuple, join them under one
+    deadline; a process still running then is terminated and fails."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [i for i, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+    need(not hung, f"{what}: processes {hung} still running after {timeout} s")
+    return [p.exitcode for p in procs]
+
+
+def phase_mesh(torch, np, card, size="full", dev="cuda", timeout=900):
+    """The mesh on the one card (MESH_WORLD spawned ranks, gloo): the
+    collectives gloo serves for the card's tensors; (A) granite-3-8b over
+    (data 1, model 4) with the kernel route, logits held to the unsharded
+    plain route (computed first in a child process and freed),
+    ``flash_decode`` launched once per layer and step on every rank; (B)
+    granite-20b smoke (kv 1) with the cache sequence sharded over model,
+    and folded over (data, model) at batch 1, both routes, held to the
+    unsharded plain route; (C) one olmoe-1b-7b MoE layer, expert-parallel,
+    held to the local dispatch; (D) one adaptive step of falcon-demo-100m
+    with counts [4, 2], held to the one-process weighted step, each leaf's
+    change within MESH_STEP_RTOL of the one-process change, which the step
+    at counts [1, 1] must miss; (E) ``remap_mesh``. All in float32 to
+    PARITY_TOL. Returns rank 0's results and every rank's (A) launches."""
+    import shutil
+
+    workdir = ROOT / "build" / "chip_smoke_mesh" / size
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    codes = _run_procs(_mesh_reference, [(size, dev, str(workdir / "reference.npy"))],
+                       timeout, "the unsharded reference")
+    need(codes == [0], f"the unsharded reference process exited with {codes}")
+    init = f"file://{workdir / 'rendezvous'}"
+    codes = _run_procs(_mesh_rank, [(r, MESH_WORLD, init, str(workdir), size, dev)
+                                    for r in range(MESH_WORLD)], timeout, "the mesh ranks")
+    errors = [(workdir / f"error{r}.txt").read_text() for r in range(MESH_WORLD)
+              if (workdir / f"error{r}.txt").exists()]
+    need(not errors, "a mesh rank failed:\n" + "\n".join(e[-2500:] for e in errors[:2]))
+    need(codes == [0] * MESH_WORLD, f"mesh ranks exited with {codes}")
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text()) for r in range(MESH_WORLD)]
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    sz = MESH_SIZES[size]
+    log(f"[18 mesh] {MESH_WORLD} ranks on one {dev} device, gloo; collectives on "
+        f"{dev} tensors: {r0['collectives']}; card: {card}")
+    for name in ("all_reduce", "all_gather"):
+        need(r0["collectives"][name] == "served", f"gloo did not serve {name}: {r0['collectives']}")
+
+    dec = r0["decode"]
+    launches = [r["decode"]["launches"] for r in ranks]
+    on_card = torch.device(dev).type == "cuda"   # the plain versions launch nothing
+    need(all(n == dec["layers"] * sz["steps"] * on_card for n in launches),
+         f"(A) flash_decode launches per rank {launches}, expected {dec['layers']} x {sz['steps']}")
+    need(dec["bad"] == 0, f"(A) {dec['bad']} sharded decode logits outside PARITY_TOL "
+         f"(max abs difference {dec['max_err']:.3e})")
+    ms = statistics.median(dec["secs"]) * 1e3
+    ref_ms = statistics.median(dec["ref_secs"]) * 1e3
+    plain_ms = statistics.median(dec["plain_secs"]) * 1e3
+    log(f"[18 mesh] (A) granite-3-8b{' smoke' if sz['smoke'] else ' published width and depth'}"
+        f" float32 over (data 1, model {MESH_WORLD}), B {sz['b']}, cache {sz['slots']} "
+        f"slots, {sz['steps']} decode steps from {sz['prompt']}, kernel route: logits equal the "
+        f"unsharded plain route's (max abs difference {dec['max_err']:.3e}, none outside "
+        f"PARITY_TOL; the unsharded kernel route's {dec['unsharded_kernel_err']:.3e}); "
+        f"flash_decode launches per rank {launches}")
+    log(f"[18 mesh] (A) decode {ms:.2f} ms a step sharded (median, host clock, synchronised; "
+        f"collectives timed with a synchronise around each) against {ref_ms:.2f} ms unsharded "
+        f"(kernel route; plain route {plain_ms:.2f} ms); "
+        f"gloo share {dec['gloo_s'] / sum(dec['secs']):.1%} of the sharded steps; peak memory "
+        f"per rank {[round(r['decode']['peak_gib'], 2) for r in ranks]} GiB; card: {card}")
+    for case in r0["seq_shard"]:
+        need(case["bad"] == 0, f"(B) {case}: values outside PARITY_TOL")
+        if case["kernel"] and on_card:
+            need(case["launches"] > 0, f"(B) {case}: flash_decode not launched")
+    log(f"[18 mesh] (B) granite-20b smoke (kv 1) over (data 2, model 2), each route against "
+        f"the unsharded plain route: "
+        + "; ".join(f"B {c['b']} {'kernel' if c['kernel'] else 'plain'} cache {c['cache_spec']}: "
+                    f"max abs difference {c['max_err']:.2e}, launches {c['launches']}"
+                    for c in r0["seq_shard"]))
+    m = r0["moe"]
+    need(m["bad"] == 0 and m["aux_bad"] == 0, f"(C) expert-parallel MoE outside PARITY_TOL: {m}")
+    log(f"[18 mesh] (C) olmoe-1b-7b MoE layer{' (smoke)' if sz['smoke'] else ''} over (data 2, "
+        f"model 2), capacity factor 8, {m['tokens']} tokens, {m['experts']} experts "
+        f"({m['e_local']} a model rank): equal to the local dispatch (max abs difference "
+        f"{m['max_err']:.2e}; aux, the mean of the data shards' own, {m['aux_err']:.2e})")
+    a = r0["adaptive"]
+    need(a["bad"] == 0 and a["moved"] == a["leaves"], f"(D) adaptive step: {a}")
+    need(a["step_err"] <= MESH_STEP_RTOL, f"(D) the step's change is {a['step_err']:.3e} "
+         f"(relative) off the one-process step's, above {MESH_STEP_RTOL}")
+    need(a["control_err"] > MESH_STEP_RTOL, f"(D) the check cannot tell counts [1, 1] from "
+         f"{MESH_COUNTS}: {a['control_err']:.3e}")
+    need(all(abs(r["adaptive"]["loss"] - a["one_loss"]) <= PARITY_TOL[1] + PARITY_TOL[0]
+             * abs(a["one_loss"]) for r in ranks), "(D) adaptive loss differs")
+    log(f"[18 mesh] (D) falcon-demo-100m{' smoke' if sz['smoke'] else ''} adaptive step over "
+        f"(data 2, model 2), counts {MESH_COUNTS}: {a['leaves']} leaves equal the one-process "
+        f"weighted step (max abs difference {a['max_err']:.2e}, {a['moved']} moved); each "
+        f"leaf's change within {a['step_err']:.2e} of the one-process change (relative, "
+        f"bound {MESH_STEP_RTOL}; the step at counts [1, 1] is {a['control_err']:.2e} off); "
+        f"loss {a['loss']:.6f} vs {a['one_loss']:.6f}")
+    new = r0["remap"]["ranks"]
+    for rank, r in enumerate(ranks):
+        pos = [(i, j) for i, row in enumerate(new) for j, v in enumerate(row) if v == rank][0]
+        need(tuple(r["remap"]["new"]) == pos, f"(E) rank {rank} at {r['remap']['new']}, "
+             f"expected {pos}")
+    log(f"[18 mesh] (E) remap_mesh {MESH_PERM}: ranks at {new}, each rank's coordinate moved "
+        f"as the permutation says; phase {secs:.1f} s")
+    return {"ranks": ranks, "launches": launches}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").exists():
@@ -2311,11 +3005,19 @@ def main() -> int:
         rows[0]["campaign_launches"] = phase_campaigns(torch, card)
         rows[0]["whatif_launches"] = phase_whatif(torch, card)
         olmoe_serve, olmoe_forward = phase_olmoe(torch, np, card)
+        twins = phase_examples(torch, np, card)
+        import gc
+
+        gc.collect()            # the twins' trainers hold reference cycles
+        torch.cuda.empty_cache()
+        mesh = phase_mesh(torch, np, card)
         for row in rows:
             if row["name"] == "flash_decode":
                 row["olmoe_launches"] = olmoe_serve["flash_decode"]
+                row["mesh_launches"] = sum(mesh["launches"])
             elif row["name"] == "flash_attention":
                 row["olmoe_launches"] = olmoe_forward["flash_attention"]
+            row["example_launches"] = sum(t[row["name"]] for t in twins.values())
         leaked = sorted(m for m in sys.modules
                         if m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro")
         need(not leaked, f"modules of jax or the JAX package were loaded: {leaked[:5]}")

@@ -101,14 +101,19 @@ def _apply_positions(
     return q, k
 
 
-def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig):
+def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, cols=None):
+    """q, k, v as (B, S, heads, hd): the heads are the weights' columns
+    (all of them, or a rank's). ``cols(t, name)``, where given, maps each
+    flat projection before the split into heads (the sharded decode's
+    all-gather of a projection's columns)."""
     b, s, _ = x.shape
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
     hn = layers.rmsnorm(x, params["norm"], cfg.norm_eps)
-    q = layers.matmul(hn, params["wq"]).reshape(b, s, h, hd)
-    k = layers.matmul(hn, params["wk"]).reshape(b, s, kv, hd)
-    v = layers.matmul(hn, params["wv"]).reshape(b, s, kv, hd)
-    return q, k, v
+    out = []
+    for w in ("wq", "wk", "wv"):
+        t = layers.matmul(hn, params[w])
+        out.append((cols(t, w) if cols else t).reshape(b, s, -1, hd))
+    return tuple(out)
 
 
 def apply_attention(
@@ -176,24 +181,40 @@ def decode_attention(
     branch), so no layer waits on the device for it.
     """
     pos = int(pos)
-    b = x.shape[0]
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    s_max = cache["k"].shape[1]
     q, k_new, v_new = _project_qkv(params, x, cfg)
-
-    if cfg.pos_encoding == "rope":
-        pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-        q = layers.apply_rope(q, pos_arr, cfg.rope_theta)
-        k_new = layers.apply_rope(k_new, pos_arr, cfg.rope_theta)
-    elif cfg.pos_encoding == "mrope":
-        pos_arr = torch.full((3, b, 1), pos, dtype=torch.int32, device=x.device)
-        q = layers.apply_mrope(q, pos_arr, cfg.rope_theta)
-        k_new = layers.apply_mrope(k_new, pos_arr, cfg.rope_theta)
-
+    q, k_new = rotate_at(q, k_new, pos, cfg)
     k_cache, v_cache = cache["k"], cache["v"]
     k_cache[:, pos] = k_new[:, 0]
     v_cache[:, pos] = v_new[:, 0]
+    out = read_cache(q, k_cache, v_cache, pos, window=window, use_kernel=use_kernel)
+    return layers.matmul(out.to(x.dtype), params["wo"]), {"k": k_cache, "v": v_cache}
 
+
+def rotate_at(q: torch.Tensor, k: torch.Tensor, pos: int, cfg: ArchConfig):
+    """One token's q and k (B, 1, heads, hd) with the positional encoding
+    of ``pos`` (a host int)."""
+    b = q.shape[0]
+    if cfg.pos_encoding == "rope":
+        pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
+        q = layers.apply_rope(q, pos_arr, cfg.rope_theta)
+        k = layers.apply_rope(k, pos_arr, cfg.rope_theta)
+    elif cfg.pos_encoding == "mrope":
+        pos_arr = torch.full((3, b, 1), pos, dtype=torch.int32, device=q.device)
+        q = layers.apply_mrope(q, pos_arr, cfg.rope_theta)
+        k = layers.apply_mrope(k, pos_arr, cfg.rope_theta)
+    return q, k
+
+
+def read_cache(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, *,
+    window: int = 0, use_kernel: bool = False,
+) -> torch.Tensor:
+    """One query row per sequence, q (B, 1, H, hd), over a whole-sequence
+    cache (B, S_max, KVH, hd) whose positions 0..pos are written: the
+    attention output (B, 1, H * hd), through ``flash_decode`` or the plain
+    einsum read. The head counts are the tensors' (all heads, or a rank's)."""
+    b, _, h, hd = q.shape
+    kv, s_max = k_cache.shape[2], k_cache.shape[1]
     if window and window < s_max:
         # Slide: attend to the `window` keys ending at pos (static size).
         start = max(pos - window + 1, 0)
@@ -211,9 +232,8 @@ def decode_attention(
         rep = h // kv
         qg = q.reshape(b, kv, rep, hd).float() * hd**-0.5
         s = torch.einsum("bgrd,bkgd->bgrk", qg, k_att.float())
-        valid = torch.arange(k_att.shape[1], device=x.device) < valid_len
+        valid = torch.arange(k_att.shape[1], device=q.device) < valid_len
         s = s.masked_fill(~valid, NEG_INF)
         p = torch.softmax(s, dim=-1)
         out = torch.einsum("bgrk,bkgd->bgrd", p, v_att.float())
-    out = out.reshape(b, 1, h * hd).to(x.dtype)
-    return layers.matmul(out, params["wo"]), {"k": k_cache, "v": v_cache}
+    return out.reshape(b, 1, h * hd)

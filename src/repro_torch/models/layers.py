@@ -131,18 +131,20 @@ def head_schema(cfg: ArchConfig) -> Schema:
     return {"w": ParamDef((d, v), (None, "model"))}
 
 
-def apply_head(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def apply_head(params: dict, x: torch.Tensor, cfg: ArchConfig, col0: int = 0) -> torch.Tensor:
     """Returns logits over the padded vocab: (B,S,Vp) or (B,S,K,Vp).
 
     Padding columns are masked to a large negative so softmax/argmax/logsumexp
     never select them; the width stays ``padded_vocab`` as in the reference.
+    ``col0`` is the vocab index of ``params["w"]``'s first column (a rank's
+    columns of a vocab-sharded head).
     """
     if cfg.modality == "audio_codes":
         logits = torch.einsum("bsd,kdv->bskv", *promote(x, params["w"]))
     else:
         logits = matmul(x, params["w"])
-    vp = cfg.padded_vocab
-    if vp != cfg.vocab_size:
-        mask = torch.arange(vp, device=logits.device) < cfg.vocab_size
+    if cfg.padded_vocab != cfg.vocab_size:
+        cols = logits.shape[-1]
+        mask = torch.arange(col0, col0 + cols, device=logits.device) < cfg.vocab_size
         logits = logits.masked_fill(~mask, -1e9)
     return logits

@@ -14,7 +14,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
-from repro_torch.models.schema import Schema, init_tree
+from repro_torch.models.schema import Schema, axes_tree, init_tree, shape_tree
 
 AUX_LOSS_COEF = 0.01
 
@@ -33,6 +33,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     raising when there is none). Deterministic per leaf, but not the JAX
     package's numbers: see :mod:`repro_torch.models.schema`."""
     return init_tree(model_schema(cfg), seed, resolve_device(device))
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The parameter tree as meta tensors (shape and type, no storage): the
+    counterpart of the reference's ``ShapeDtypeStruct`` tree."""
+    def meta(tree):
+        return {k: meta(v) if isinstance(v, dict)
+                else torch.empty(v[0], dtype=v[1], device="meta")
+                for k, v in tree.items()}
+
+    return meta(shape_tree(model_schema(cfg)))
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter (``"model"`` or None per dim)."""
+    return axes_tree(model_schema(cfg))
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:

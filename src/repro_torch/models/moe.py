@@ -24,10 +24,18 @@ reference does, on any device:
   index) and adds a token's k rows in ascending expert order: deterministic
   on every device.
 
-The expert-parallel path of the reference (a ``shard_map`` over the model
-axis, ``moe.py:121-221`` there) needs a mesh; it is not ported yet
-(ROADMAP.md, Queue 1, item 6). :func:`apply_moe` always runs the local
-dispatch, which is what the reference runs without a model axis.
+Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) whose model
+axis divides ``padded_experts``, with ``moe_shard == "experts"``,
+:func:`apply_moe` takes the reference's expert-parallel path (its
+``shard_map`` over the model axis): each model rank dispatches its own data
+rank's tokens to its own ``e_local`` experts (capacity sized for the local
+tokens, so it drops what the reference's per-shard dispatch drops), the
+shared experts are column/row parallel, and the partial outputs meet in one
+all-reduce over ``model``; the aux loss is averaged over ``model`` and the
+batch axes. Where the batch does not divide the DP size the tokens stay
+replicated and only ``model`` is manual. With no mesh, or a model axis of
+1, it is the local dispatch. The expert-parallel path is for inference: its
+collectives carry no gradient, and it raises under autograd.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models.schema import ParamDef, Schema
+from repro_torch.sharding import P, ambient_mesh
 
 
 def moe_schema(cfg: ArchConfig) -> Schema:
@@ -121,8 +130,10 @@ def _moe_core(
     e_local: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Route + sort-dispatch + per-expert SwiGLU for experts
-    [e_offset, e_offset + e_local). Returns the *partial* combined output
-    (T, D) float32 (contributions of those experts only) and the aux loss.
+    [e_offset, e_offset + e_local), whose weights ``params`` holds (its
+    ``wi_gate``/``wi_up``/``wo`` have ``e_local`` experts). Returns the
+    *partial* combined output (T, D) float32 (contributions of those experts
+    only) and the aux loss.
 
     With (e_offset=0, e_local=E) this is the full local computation.
     """
@@ -147,11 +158,8 @@ def _moe_core(
     def bmm(a, w):
         return torch.bmm(*layers.promote(a, w))
 
-    wi_gate = params["wi_gate"][e_offset:e_offset + e_local]
-    wi_up = params["wi_up"][e_offset:e_offset + e_local]
-    wo = params["wo"][e_offset:e_offset + e_local]
-    act = F.silu(bmm(buf, wi_gate)) * bmm(buf, wi_up)
-    out_buf = bmm(act, wo)
+    act = F.silu(bmm(buf, params["wi_gate"])) * bmm(buf, params["wi_up"])
+    out_buf = bmm(act, params["wo"])
 
     # ---- combine ---------------------------------------------------------
     # The spare row's output is exactly zero (silu(0) * 0 @ wo).
@@ -170,19 +178,113 @@ def _moe_core(
     return y, aux
 
 
+def _ep_axes(cfg: ArchConfig):
+    """(mesh, batch axes, model axis size) when the expert-parallel path
+    applies under the ambient mesh, else None (no mesh, no model axis, a
+    model axis of 1, ``moe_shard != "experts"`` or E not dividing it)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return None
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names:
+        return None
+    tp = mesh.shape[names.index("model")]
+    if tp <= 1 or cfg.moe_shard != "experts" or cfg.padded_experts % tp:
+        return None
+    ba = tuple(a for a in ("pod", "data") if a in names)
+    return mesh, ba, tp
+
+
+def ep_specs(cfg: ArchConfig, ba: tuple[str, ...]) -> tuple[dict, P]:
+    """The expert-parallel path's specs of the MoE weights and of the
+    (B, S, D) tokens (the reference's shard_map in_specs)."""
+    wspec = {
+        "norm": P(None),
+        "router": P(None, None),
+        "wi_gate": P("model", None, None),
+        "wi_up": P("model", None, None),
+        "wo": P("model", None, None),
+    }
+    if cfg.num_shared_experts:
+        wspec["shared_wi_gate"] = P(None, "model")
+        wspec["shared_wi_up"] = P(None, "model")
+        wspec["shared_wo"] = P("model", None)
+    return wspec, P(ba if ba else None, None, None)
+
+
+def _shared(params: dict, xf: torch.Tensor) -> torch.Tensor:
+    shg = F.silu(layers.matmul(xf, params["shared_wi_gate"])) * layers.matmul(
+        xf, params["shared_wi_up"]
+    )
+    return layers.matmul(shg, params["shared_wo"])
+
+
+def moe_ep_local(
+    params: dict, hn: torch.Tensor, cfg: ArchConfig, mesh, ba: tuple[str, ...]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One rank's share of the expert-parallel MoE on its local shards (the
+    reference's ``ep_body``): ``params`` holds this model rank's
+    ``e_local`` experts and its column/row slices of the shared experts,
+    ``hn`` (b, s, D) its normalised tokens. Returns (y (b, s, D) in hn's
+    type, aux averaged over ``model`` and ``ba``)."""
+    from repro_torch.sharding.manual import all_reduce, axis_index
+    from repro_torch.sharding.partition import mesh_axis_size
+
+    bl, sl, d = hn.shape
+    xf = hn.reshape(bl * sl, d)
+    tp = mesh_axis_size(mesh, "model")
+    e_local = cfg.padded_experts // tp
+    r = axis_index(mesh, "model")
+    y, aux = _moe_core(params, xf, cfg, r * e_local, e_local)
+    if cfg.num_shared_experts:
+        # Column/row tensor-parallel over the same axis: the row-parallel
+        # partial rides the same all-reduce.
+        y = y + _shared(params, xf).float()
+    y = all_reduce(y, "model", mesh)
+    axes = ("model", *ba)
+    aux = all_reduce(aux, axes, mesh) / mesh_axis_size(mesh, axes)
+    return y.to(hn.dtype).reshape(bl, sl, d), aux
+
+
 def apply_moe(
     params: dict, x: torch.Tensor, cfg: ArchConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B,S,D) in x's type, aux_loss scalar), by the local
-    dispatch (no expert parallelism: see the module docstring)."""
-    b, s, d = x.shape
-    hn = layers.rmsnorm(x, params["norm"], cfg.norm_eps)
-    xf = hn.reshape(b * s, d)
-    y, aux = _moe_core(params, xf, cfg, 0, cfg.padded_experts)
-    y = y.to(x.dtype)
-    if cfg.num_shared_experts:
-        shg = F.silu(layers.matmul(xf, params["shared_wi_gate"])) * layers.matmul(
-            xf, params["shared_wi_up"]
-        )
-        y = y + layers.matmul(shg, params["shared_wo"]).to(x.dtype)
-    return y.reshape(b, s, d), aux
+    """Returns (output (B,S,D) in x's type, aux_loss scalar).
+
+    Under an ambient mesh where the expert-parallel path applies (see the
+    module docstring), ``params`` and ``x`` are global values: DTensors
+    placed as :func:`ep_specs` says, or plain tensors that every rank holds
+    whole. The output is a DTensor placed as ``x`` when ``x`` is one, else
+    the whole (B, S, D) tensor on every rank. Otherwise the local dispatch
+    runs on the tensors as they are."""
+    ep = _ep_axes(cfg)
+    if ep is None:
+        b, s, d = x.shape
+        hn = layers.rmsnorm(x, params["norm"], cfg.norm_eps)
+        xf = hn.reshape(b * s, d)
+        y, aux = _moe_core(params, xf, cfg, 0, cfg.padded_experts)
+        y = y.to(x.dtype)
+        if cfg.num_shared_experts:
+            y = y + _shared(params, xf).to(x.dtype)
+        return y.reshape(b, s, d), aux
+
+    from repro_torch.sharding.manual import as_dtensor, gather, is_dtensor, local_shard
+    from repro_torch.sharding.partition import mesh_axis_size
+
+    mesh, ba, _ = ep
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for t in params.values() if isinstance(t, torch.Tensor))):
+        raise RuntimeError("the expert-parallel MoE's collectives carry no gradient: "
+                           "run it under torch.no_grad(), or train without a model axis")
+    if x.shape[0] % mesh_axis_size(mesh, ba):
+        # Batch doesn't divide the DP axes: manual over the model axis
+        # only; tokens are replicated across DP.
+        ba = ()
+    wspec, bspec = ep_specs(cfg, ba)
+    local = {k: local_shard(params[k], spec, mesh) for k, spec in wspec.items()}
+    h = local_shard(x, bspec, mesh)
+    hn = layers.rmsnorm(h, local["norm"], cfg.norm_eps)
+    y, aux = moe_ep_local(local, hn, cfg, mesh, ba)
+    if is_dtensor(x):
+        return as_dtensor(y, bspec, mesh, shape=x.shape), aux
+    return gather(y, bspec, mesh), aux

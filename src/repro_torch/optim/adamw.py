@@ -7,9 +7,8 @@ port updates the moments and the parameters in place (under
 ``torch.no_grad``) and returns the same dicts: at mamba2-2.7b's width the
 moments alone are 22.6 GB, and a second copy would not fit beside them.
 
-The ZeRO-1 moment sharding of the reference (``zero1_specs``,
-``opt_state_specs``) needs a device mesh: it comes with the sharding slice
-(ROADMAP.md, Queue 1).
+:func:`zero1_specs` and :func:`opt_state_specs` give the moments' ZeRO-1
+sharding on a DeviceMesh, as the reference's do on a JAX mesh.
 """
 from __future__ import annotations
 
@@ -118,3 +117,45 @@ def update(
         pf = pf - lr * (step_vec + cfg.weight_decay * pf)
         p.copy_(pf)
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+# ------------------------------------------------------------- sharding
+def zero1_specs(param_spec_tree: dict, shapes: dict, mesh) -> dict:
+    """Moment specs: like the parameter spec, plus ZeRO-1 sharding of the
+    first still-replicated dimension over the DP axes when divisible.
+    ``shapes`` is a tree of tensors or meta tensors
+    (:func:`repro_torch.models.model.param_shapes`)."""
+    from repro_torch.sharding import P
+    from repro_torch.sharding.partition import batch_axes, mesh_axis_size
+
+    ba = batch_axes(mesh)
+    dp = mesh_axis_size(mesh, ba)
+
+    def one(spec, shape):
+        if dp <= 1:
+            return spec
+        dims = list(spec) + [None] * (len(shape.shape) - len(spec))
+        # FSDP-sharded params already use the DP axes — a mesh axis can only
+        # appear once per spec, and the moments inherit that sharding anyway.
+        used = {a for s in dims if s for a in (s if isinstance(s, tuple) else (s,))}
+        if used & set(ba):
+            return P(*dims)
+        for i, (d, s) in enumerate(zip(shape.shape, dims, strict=True)):
+            if s is None and d % dp == 0 and d >= dp:
+                dims[i] = ba
+                return P(*dims)
+        return spec
+
+    def walk(specs, shapes):
+        if isinstance(specs, P):
+            return one(specs, shapes)
+        return {k: walk(v, shapes[k]) for k, v in specs.items()}
+
+    return walk(param_spec_tree, shapes)
+
+
+def opt_state_specs(param_spec_tree: dict, shapes: dict, mesh) -> AdamWState:
+    from repro_torch.sharding import P
+
+    moment = zero1_specs(param_spec_tree, shapes, mesh)
+    return AdamWState(step=P(), mu=moment, nu=moment)

@@ -9,6 +9,10 @@ per-token cost AND bounded attention reads).
 Prefill runs the plain blocked attention and the plain chunked SSD scan,
 as in the reference (no kernel); decode takes ``use_kernel`` to the CUDA
 flash-decode kernel (a Mamba2 decode step is the recurrence, no kernel).
+
+Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) the decode
+step runs per rank on local shards with explicit collectives
+(:mod:`repro_torch.serve.sharded_decode`).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers, model as model_lib, moe, ssm, transformer
+from repro_torch.sharding import ambient_mesh
 
 
 def serve_window(cfg: ArchConfig, seq_len: int) -> int:
@@ -34,6 +39,14 @@ def make_decode_step(
     window = serve_window(cfg, seq_len)
 
     def decode_step(params, tokens, caches, pos):
+        mesh = ambient_mesh()
+        if mesh is not None:
+            from repro_torch.serve import sharded_decode
+
+            return sharded_decode.decode_step(
+                params, tokens, caches, pos, cfg, mesh, window=window,
+                use_kernel=use_kernel,
+            )
         return model_lib.decode_step(
             params, tokens, caches, pos, cfg, window=window,
             use_kernel=use_kernel,

@@ -7,9 +7,14 @@ rounds the sum), summed into float32 buffers in slot order, divided by the
 slot count, then one AdamW update. The reference's ``lax.scan`` over slots
 is a Python loop here.
 
-The FALCON S2 variant (``make_adaptive_train_step``: per-DP-group trip
-counts inside a ``shard_map`` over a device mesh) comes with the sharding
-slice (ROADMAP.md, Queue 1).
+``make_adaptive_train_step`` is the FALCON S2 variant on a DeviceMesh:
+each DP group runs its *own* micro-batch allocation ``counts[g]`` (the
+reference's ``lax.while_loop`` inside a ``shard_map`` manual over the DP
+axes), and the gradient sums and the counts meet in all-reduces over the DP
+groups, so the update uses the paper's weighted mean sum(grads) / sum(m).
+The model axis stays replicated: every rank of a DP group runs the same
+micro-batches on the whole parameters (with unsharded parameters GSPMD also
+keeps the reference's auto model axis replicated).
 
 Batch layout: ``(slots, global_microbatch, S, ...)`` — see
 :mod:`repro_torch.data.pipeline`.
@@ -66,6 +71,68 @@ def make_train_step(
         grads = _unflatten(paths, gsum)
         params, opt_state = adamw.update(opt_cfg, grads, opt_state, params)
         return params, opt_state, {"loss": lsum / slots}
+
+    return train_step
+
+
+def make_adaptive_train_step(
+    cfg: ArchConfig,
+    opt_cfg: adamw.AdamWConfig,
+    mesh,
+    *,
+    use_kernel: bool = False,
+) -> Callable:
+    """FALCON S2 step: per-DP-group trip counts + weighted gradients.
+
+    The returned ``train_step(params, opt_state, batch, counts)`` is called
+    by every rank of ``mesh`` with the same arguments: ``params`` and
+    ``opt_state`` whole on every rank (updated in place, as
+    :func:`make_train_step` does), ``batch`` the global (slots, global_mb,
+    S, ...) batch (whole tensors, or DTensors placed by
+    ``train_batch_specs``), ``counts`` the micro-batches of each DP group
+    (length = the DP size, groups in mesh order). Group g runs its first
+    ``counts[g]`` slots on its columns of the batch."""
+    from repro_torch.sharding import P
+    from repro_torch.sharding.manual import all_reduce, axis_index, local_shard
+    from repro_torch.sharding.partition import batch_axes, mesh_axis_size, spec_axes
+    from repro_torch.sharding.partition import train_batch_specs
+
+    ba = batch_axes(mesh)
+    dp = mesh_axis_size(mesh, ba)
+    # Manual only over the DP axes: drop other axis names from the specs.
+    bspecs = {k: P(*[tuple(a for a in spec_axes(e) if a in ba) or None for e in spec])
+              for k, spec in train_batch_specs(cfg, mesh).items()}
+
+    def train_step(params, opt_state, batch, counts):
+        if len(counts) != dp:
+            raise ValueError(f"counts has {len(counts)} entries for {dp} DP groups")
+        m = int(counts[axis_index(mesh, ba)])    # this DP group's allocation
+        local = {k: local_shard(v, bspecs[k], mesh) for k, v in batch.items()}
+        paths, flat = zip(*adamw.leaves(params))
+        for p in flat:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+        lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        for i in range(m):
+            mb = _take_slot(local, i, cfg)
+            loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
+            grads = torch.autograd.grad(loss, flat)
+            with torch.no_grad():
+                for acc, g in zip(gsum, grads):
+                    acc.add_(g)
+            del grads
+            lsum = lsum + loss.detach()
+        # Weighted gradient aggregation (paper §5.3): each group contributes
+        # its gradient *sum*; dividing by the global micro-batch count gives
+        # weights m_i / M.
+        total = float(sum(int(c) for c in counts))
+        with torch.no_grad():
+            gsum = [all_reduce(acc, ba, mesh).div_(total) for acc in gsum]
+        loss = all_reduce(lsum, ba, mesh) / total
+        grads = _unflatten(paths, gsum)
+        params, opt_state = adamw.update(opt_cfg, grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
 
     return train_step
 

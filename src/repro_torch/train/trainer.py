@@ -21,9 +21,9 @@ into ``allocation``, S4 into an in-memory checkpoint restore.
 the registry.
 
 The trainer runs on ``device`` (None = the card, raising when there is
-none; ``"cpu"`` on request). The runtime analogue of S3 (``remap_mesh``:
-a device permutation of the mesh) and the adaptive S2 step need a device
-mesh and come with the sharding slice (ROADMAP.md, Queue 1).
+none; ``"cpu"`` on request). :func:`remap_mesh` is the runtime analogue
+of S3 on a DeviceMesh (a rank permutation of the mesh); the adaptive S2
+step is :func:`repro_torch.train.train_step.make_adaptive_train_step`.
 """
 from __future__ import annotations
 
@@ -220,3 +220,16 @@ class FalconTrainer:
                 )
             )
         return self.history
+
+
+# ---------------------------------------------------------------- S3 util
+def remap_mesh(mesh, perm: list[int]):
+    """Runtime analogue of the paper's node swap: the DeviceMesh whose
+    position i holds the rank at position ``perm[i]`` of ``mesh`` (state must
+    be redistributed by the caller). Every rank of the process group must
+    call it: it builds the new mesh's process groups."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = mesh.mesh.reshape(-1)[torch.as_tensor(perm, dtype=torch.long)]
+    return DeviceMesh(mesh.device_type, ranks.reshape(mesh.mesh.shape),
+                      mesh_dim_names=mesh.mesh_dim_names)

@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA card: the CUDA kernels against
 their plain PyTorch versions, the kernel-backed fleet screen against the
 numpy backend, the serve path's kernel route against its plain route, an
-MoE layer on the card against the CPU, and the what-if layer's committed
-attribution sidecar regenerated on the card.
+MoE layer on the card against the CPU, the what-if layer's committed
+attribution sidecar regenerated on the card, and the mesh checks of
+``chip_smoke.py`` (4 ranks over gloo on the card) at smoke size.
 Each skips without a card; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_card.py
@@ -189,9 +190,10 @@ def test_bocd_step_is_one_kernel_per_call(card, dtype, b):
 
 
 # The narrow kernel takes pp, tp <= 16; (20, 24, 4), (3, 5, 17) and (4, 12, 40)
-# take the general one (tp 40: rings in chunks of 32).
+# take the general one (tp 40: rings in chunks of 32); (2, 4, 2) is the
+# (2 TP, 4 DP, 2 PP) job of examples/torch_train_100m_falcon.py.
 CELL_SHAPES = [(2, 2, 2), (1, 3, 5), (3, 1, 2), (9, 9, 3), (8, 160, 8), (16, 128, 8),
-               (16, 1024, 8), (20, 24, 4), (3, 5, 17), (4, 12, 40)]
+               (16, 1024, 8), (20, 24, 4), (3, 5, 17), (4, 12, 40), (2, 4, 2)]
 CELL_CONSTS = (3.0, 2.0, 0.7, 1.3, 0.9)
 
 
@@ -318,6 +320,7 @@ def _close(got, want, dtype):
     (2, 1000, 16, 4, 128, 999),    # Skv not a multiple of a split
     (2, 64, 4, 2, 64, 0),          # nothing valid: zeros
     (8, 1088, 16, 16, 128, 1088),  # MHA, rep 1: the OLMoE serve shape
+    (8, 1088, 8, 2, 128, 1025),    # a rank of granite-3-8b's decode over model 4
 ])
 def test_flash_decode_kernel_matches_plain_version(card, dtype, b, skv, h, kvh, hd, valid):
     q = _normal(card, 1, (b, h, hd), dtype)
@@ -805,3 +808,33 @@ def test_whatif_leave_one_out_on_card_equals_committed_sidecar(card, tmp_path, m
     with open(os.path.join(root, "results", "campaigns",
                            "single_gpu_throttle-j1-s0.attribution.json"), "rb") as f:
         assert out.read_bytes() == f.read()
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` imported by name (its spawned ranks import it too)."""
+    import importlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_mesh_checks_on_card_at_smoke_size(card):
+    """chip_smoke.py's phase 18 at smoke size: 4 ranks on the card over
+    gloo; the sharded decode (heads sharded, kernel route) equal to the
+    unsharded plain route with flash_decode launched on every rank, the
+    sequence-sharded kv=1 cache (plain and kernel), the expert-parallel MoE,
+    the adaptive step (its change of each leaf to MESH_STEP_RTOL, which the
+    step at counts [1, 1] misses) and remap_mesh, each to PARITY_TOL."""
+    cs = _chip_smoke()
+    name = torch.cuda.get_device_name(0)
+    out = cs.phase_mesh(torch, np, name, size="smoke", dev="cuda", timeout=600)
+    layers = get_config("granite-3-8b").smoke().num_layers
+    assert out["launches"] == [layers * cs.MESH_SIZES["smoke"]["steps"]] * cs.MESH_WORLD
+    r0 = out["ranks"][0]
+    assert r0["collectives"]["all_reduce"] == "served"
+    assert all(c["launches"] > 0 for c in r0["seq_shard"] if c["kernel"])
+    assert r0["adaptive"]["step_err"] <= cs.MESH_STEP_RTOL < r0["adaptive"]["control_err"]

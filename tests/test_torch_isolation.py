@@ -2,8 +2,10 @@
 plane tick, serving one smoke-size prefill + decode step, taking one
 smoke-size training step, scoring one campaign and writing its
 observability sidecars, and replaying one what-if variant load neither jax
-nor the JAX package (checked in a fresh interpreter), and the default entry
-points want the card."""
+nor the JAX package (checked in a fresh interpreter); nor do the sharding
+layer, the mesh builders and the four example twins, in a fresh parent and
+in each rank of a 2-rank gloo adaptive step; and the default entry points
+want the card."""
 import os
 import subprocess
 import sys
@@ -90,6 +92,39 @@ def test_port_loads_neither_jax_nor_reference_package():
     ).stdout
     line = [ln for ln in out.splitlines() if ln.startswith("LOADED:")]
     assert line == ["LOADED:"], out
+
+
+_MESH_PROGRAM = textwrap.dedent("""
+    import glob, importlib.util, os, sys
+    import numpy as np
+    import repro_torch.sharding, repro_torch.sharding.partition  # noqa: F401
+    import repro_torch.launch.mesh  # noqa: F401
+    for path in sorted(glob.glob(os.path.join(sys.argv[1], "torch_*.py"))):
+        spec = importlib.util.spec_from_file_location("twin", path)
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    import _torch_mesh_workers as workers
+    ranks = workers.spawn(workers.two_rank_step, 2, sys.argv[2], timeout=180)
+    assert all(np.isfinite(r["loss"]) for r in ranks), ranks
+    assert ranks[0]["loss"] == ranks[1]["loss"], ranks
+    bad = [list(r["modules"]) for r in ranks]
+    bad.append(sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith("jax.")
+                      or m == "repro" or m.startswith("repro.")))
+    print("LOADED:" + repr(bad))
+""")
+
+
+def test_mesh_layer_and_twins_load_neither_jax_nor_reference_package(tmp_path):
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, tests]))
+    out = subprocess.run(
+        [sys.executable, "-c", _MESH_PROGRAM,
+         os.path.join(os.path.dirname(SRC), "examples"), str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("LOADED:")]
+    assert line == ["LOADED:[[], [], []]"], out.stdout
 
 
 def test_auto_backends_raise_without_a_card():
