@@ -128,21 +128,38 @@ order:
     twin is host work and the serve twin decodes on the plain route;
 18. the mesh on the one card: 4 spawned ranks joined by gloo on CUDA
     tensors (NCCL refuses two ranks on one device), the collectives gloo
-    serves for them probed and printed; in float32 to PARITY_TOL: (A)
-    granite-3-8b at published width and depth over (data 1, model 4),
-    heads sharded, B 8 and a 1,088-slot cache, 8 decode steps with the
-    kernel route, logits equal to the unsharded plain route's (run first in
-    a child process and freed), ``flash_decode`` launched 40 x 8 times on
-    every rank, the decode ms a step sharded and unsharded and the gloo
-    share printed; (B) granite-20b smoke (kv 1) with the cache sequence
-    sharded over model (B 4) and folded over (data, model) (B 1), both
-    routes, equal to the unsharded plain route; (C) one olmoe-1b-7b MoE
-    layer at published width, expert-parallel over (data 2, model 2) at
-    capacity factor 8, equal to the local dispatch; (D) one adaptive step of
-    falcon-demo-100m at published width over (data 2, model 2) with counts
-    [4, 2], equal to the one-process weighted step and each leaf's change
-    within MESH_STEP_RTOL of the one-process change (the step at counts
-    [1, 1] must miss it); (E) ``remap_mesh``.
+    serves for them probed and printed; in float32 to PARITY_TOL: (F)
+    granite-3-8b at published width and depth over (data 1, model 4), heads
+    sharded: the sharded prefill of 8 x 1,024 tokens, its last-token logits
+    and every rank's cache shards equal to the unsharded plain prefill's (run
+    first in a child process and freed); (A) from (F)'s caches grown to 1,088
+    slots, 8 decode steps with the kernel route, logits equal to the unsharded
+    plain route's, ``flash_decode`` launched 40 x 8 times on every rank, the
+    decode ms a step sharded and unsharded and the gloo share printed; (B)
+    granite-20b smoke (kv 1) with the cache sequence sharded over model (B 4)
+    and folded over (data, model) (B 1), both routes, equal to the unsharded
+    plain route; (C) one olmoe-1b-7b MoE layer at published width,
+    expert-parallel over (data 2, model 2) at capacity factor 8, equal to the
+    local dispatch; (D) one adaptive step of falcon-demo-100m at published
+    width over (data 2, model 2) with counts [4, 2], equal to the one-process
+    weighted step and each leaf's change within MESH_STEP_RTOL of the
+    one-process change (the step at counts [1, 1] must miss it); (G) one even
+    train step of falcon-demo-100m at published width over (2, 2),
+    model-sharded with ZeRO-1 moments (``make_train_step`` under the mesh),
+    each leaf's change within MESH_STEP_RTOL of the one-process step's
+    (STEP_ULPS float32 units forgiven; the step on the first slot alone must
+    miss it); (H) the gradients of one olmoe-1b-7b MoE layer and of its input
+    through the expert-parallel path equal to the local dispatch's on each
+    data shard; (E) ``remap_mesh``;
+19. the dry-run twin on the card (``repro_torch.launch.dryrun``, in a child
+    process over a fake process group of 256 or 512 ranks): granite-3-8b at
+    all four shapes, mamba2-2.7b and olmoe-1b-7b training, jamba's prefill
+    and granite-3-8b training over 2x16x16; each record's argument bytes
+    equal to the shard-shape sum worked out here from the port's partition
+    functions, its peak within the card's memory and its operations at least
+    DRYRUN_FLOPS_SHARE of the model's per device; beside each peak the
+    ``--device cpu`` route's MemTracker estimate, run at the lowest priority
+    beside phases 1-18 (stopped at DRYRUN_CPU_DEADLINE if not done).
 
 Any failure exits non-zero. The last two lines are a JSON object with one
 entry per kernel (``bocd_step``'s also carries ``campaign_launches`` and
@@ -2414,6 +2431,10 @@ MESH_OPT = dict(lr=1e-2, eps=1.0, warmup_steps=0, weight_decay=0.0)
 #: (D) holds each leaf's change (the step's parameters less the start) to
 #: the one-process step's change, relative to the latter's norm
 MESH_STEP_RTOL = 1e-3
+#: (G) first forgives each element this many float32 units of its parameter:
+#: the model-sharded sums round the gradients otherwise than one process,
+#: and a parameter of 1.0 moved by 1e-5 then rounds to the other neighbour
+STEP_ULPS = 2
 MESH_SIZES = {
     # granite-3-8b at published width and depth: B 8, cache 1,088 slots,
     # decode from position 1,024; olmoe-1b-7b's MoE layer on 4 x 256 tokens
@@ -2464,16 +2485,23 @@ def _mesh_tokens(np, cfg, size):
     return np.random.default_rng(7).integers(0, cfg.vocab_size, (sz["steps"], sz["b"], 1))
 
 
+def _mesh_prompt(np, cfg, size):
+    sz = MESH_SIZES[size]
+    return np.random.default_rng(5).integers(0, cfg.vocab_size, (sz["b"], sz["prompt"]))
+
+
 def _mesh_reference(size, dev, path):
-    """The unsharded float32 decode of the granite-3-8b check, in its own
-    process (freed before the ranks start): the plain route's logits of
-    each step to ``path`` (.npy); then, from fresh caches, the kernel
-    route's, and the host seconds of each of its steps, beside it."""
+    """The unsharded float32 prefill and decode of the granite-3-8b check,
+    in its own process (freed before the ranks start): the plain prefill's
+    logits and cache leaves, and its host seconds, beside ``path`` (.npy);
+    then from its caches, grown to the cache length, the plain decode
+    route's logits of each step to ``path``; then from the same caches the
+    kernel route's, and the host seconds of each of its steps."""
     import numpy as np
     import torch
 
-    from repro_torch.models import model as model_lib
-    from repro_torch.serve.serve_step import make_decode_step
+    from repro_torch.models import model as model_lib, transformer
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     sz = MESH_SIZES[size]
@@ -2481,9 +2509,23 @@ def _mesh_reference(size, dev, path):
     params = model_lib.init_params(cfg, 0, device=dev)     # float32 draws cast to bf16
     params = _to_f32(params)                                 # upcast exactly
     _free(torch, dev)
+    prompt = torch.as_tensor(_mesh_prompt(np, cfg, size), device=dev)
+    with torch.no_grad():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, prefilled = make_prefill_step(cfg, sz["prompt"])(params, {"tokens": prompt})
+        _sync(torch, dev)
+        secs = time.perf_counter() - t0
+    base = str(path).replace(".npy", "")
+    np.save(f"{base}_prefill.npy", logits.float().cpu().numpy())
+    np.save(f"{base}_prefill_secs.npy", np.asarray([secs]))
+    for key, leaves in prefilled.items():
+        for n, t in leaves.items():
+            np.save(f"{base}_cache_{key}_{n}.npy", t.float().cpu().numpy())
+    _free(torch, dev)
     toks = _mesh_tokens(np, cfg, size)
     for use_kernel, name in ((False, ""), (True, "_kernel")):
-        caches = _cache_tree(_mesh_caches(torch, cfg, sz["b"], sz["slots"], dev))
+        caches = transformer.grow_caches(prefilled, cfg, sz["slots"])
         step = make_decode_step(cfg, sz["slots"], use_kernel=use_kernel)
         logits, secs = [], []
         with torch.no_grad():
@@ -2589,11 +2631,12 @@ def _mesh_checks(torch, rank, world, size, dev, workdir):
     from repro_torch.models import model as model_lib, moe
     from repro_torch.models.schema import init_tree
     from repro_torch.optim import adamw
-    from repro_torch.serve.serve_step import make_decode_step
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.serve.sharded_prefill import grow_caches
     from repro_torch.sharding import set_mesh
     from repro_torch.sharding import partition as part
-    from repro_torch.sharding.manual import as_dtensor, gather
-    from repro_torch.train.train_step import make_adaptive_train_step
+    from repro_torch.sharding.manual import gather
+    from repro_torch.train.train_step import make_adaptive_train_step, make_train_step
     from repro_torch.train.trainer import remap_mesh
 
     sz = MESH_SIZES[size]
@@ -2625,28 +2668,53 @@ def _mesh_checks(torch, rank, world, size, dev, workdir):
     res["collectives"] = probe
     dist.barrier()
 
-    # (A) granite-3-8b over (data 1, model 4), KV heads sharded, the kernel route.
+    # (F) granite-3-8b over (data 1, model 4): the sharded prefill of the
+    # prompt, held to the unsharded plain prefill (logits and every cache
+    # leaf, each rank its own shards).
     cfg = _mesh_cfg("granite-3-8b", size)
     mesh = make_host_mesh(1, world, device=dev)
     s_total = sz["slots"]
-    cspecs = part.cache_specs(cfg, mesh, sz["b"])
     sizes, coord = part.axis_sizes(mesh), part.coordinate(mesh)
     for turn in range(world):      # one rank draws its whole leaves at a time
         if turn == rank:
             params = _init_shards(torch, cfg, 0, mesh, dev)
-            caches = {}
-            for key, n, full in _mesh_caches(torch, cfg, sz["b"], s_total, dev):
-                local = full[part.shard_slices(full.shape, cspecs[key][n], sizes, coord)]
-                caches.setdefault(key, {})[n] = as_dtensor(local.contiguous(), cspecs[key][n],
-                                                           mesh, shape=full.shape)
-                del full, local
-                _free(torch, dev)
         dist.barrier()
+    prompt = torch.as_tensor(_mesh_prompt(np, cfg, size), device=dev)
+    with set_mesh(mesh), torch.no_grad():
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, caches = make_prefill_step(cfg, sz["prompt"])(params, {"tokens": prompt})
+        _sync(torch, dev)
+        prefill_secs = time.perf_counter() - t0
+        full_logits = gather(logits.to_local(), part.spec_of(logits), mesh)
+    base = str(Path(workdir) / "reference")
+    err, bad = _diff(torch, full_logits.float(),
+                     torch.as_tensor(np.load(f"{base}_prefill.npy"), device=dev), cfg.vocab_size)
+    cerr, cbad, leaves = 0.0, 0, 0
+    for key, c in caches.items():
+        for n, t in c.items():
+            want = np.load(f"{base}_cache_{key}_{n}.npy", mmap_mode="r")
+            mine = want[part.shard_slices(want.shape, part.spec_of(t), sizes, coord)]
+            e, k = _diff(torch, t.to_local().float(), torch.as_tensor(np.ascontiguousarray(mine),
+                                                                      device=dev))
+            cerr, cbad, leaves = max(cerr, e), cbad + k, leaves + 1
+    res["prefill"] = {"max_err": err, "bad": bad, "cache_err": cerr, "cache_bad": cbad,
+                      "cache_leaves": leaves, "secs": prefill_secs,
+                      "cache_spec": str(part.spec_of(caches["sub0"]["k"])),
+                      "ref_secs": float(np.load(f"{base}_prefill_secs.npy")[0])}
+    del logits, full_logits
+    _free(torch, dev)
+
+    # (A) decode from (F)'s caches, grown to the cache length: KV heads
+    # sharded, the kernel route.
+    with torch.no_grad():
+        caches = grow_caches(caches, cfg, s_total, mesh)
     step = make_decode_step(cfg, s_total, use_kernel=True)
     toks = _mesh_tokens(np, cfg, size)
     tspec = part.decode_token_specs(cfg, mesh, sz["b"])
     gloo_s = [0.0]
-    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather_into_tensor",
+                                                   "reduce_scatter_tensor")}
 
     def timed(fn):
         def call(*a, **k):
@@ -2787,6 +2855,87 @@ def _mesh_checks(torch, rank, world, size, dev, workdir):
     del params, p2, batch
     dist.barrier()
 
+    # (G) one even train step of falcon-demo-100m over (2, 2), model-sharded:
+    # DTensor parameters and ZeRO-1 moments, make_train_step under the mesh.
+    from repro_torch.models.model import param_shapes
+    from repro_torch.sharding import P
+
+    cfg = _mesh_cfg("falcon-demo-100m", size)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(cfg, data, 0).items()}
+    params = _to_f32(model_lib.init_params(cfg, 0, device=dev))
+    specs = part.param_specs(cfg, mesh)
+    opt0 = adamw.init(params)
+    ospecs = adamw.opt_state_specs(specs, param_shapes(cfg), mesh)
+    o_d = adamw.AdamWState(step=part.distribute(opt0.step, P(), mesh),
+                           mu=part.distribute(opt0.mu, ospecs.mu, mesh),
+                           nu=part.distribute(opt0.nu, ospecs.nu, mesh))
+    p_d = part.distribute(params, specs, mesh)
+    del opt0, params
+    with set_mesh(mesh):
+        p2, _, m = make_train_step(cfg, opt)(p_d, o_d, batch)
+    got = {path: gather(t.to_local(), part.spec_of(t), mesh)
+           for path, t in adamw.leaves(p2)}
+    res["even"] = {"loss": float(m["loss"]),
+                   "sharded": sum(int(any(e is not None for e in part.spec_of(t)))
+                                  for _, t in adamw.leaves(p2))}
+    if rank == 0:
+        start = dict(adamw.leaves(_to_f32(model_lib.init_params(cfg, 0, device=dev))))
+        one, one_loss = _one_process_even_step(torch, cfg, opt, batch, dev)
+        # The control: the step on the first slot alone must fail the same check.
+        control, _ = _one_process_even_step(torch, cfg, opt,
+                                            {k: v[:1] for k, v in batch.items()}, dev)
+        err, bad = 0.0, 0
+        for path, t in got.items():
+            e, k = _diff(torch, t, one[path])
+            err, bad = max(err, e), bad + k
+        res["even"].update(
+            max_err=err, bad=bad, leaves=len(one), one_loss=one_loss,
+            moved=sum(int(not torch.equal(t, start[path])) for path, t in got.items()),
+            step_err=_step_err(got, one, start, STEP_ULPS),
+            control_err=_step_err(control, one, start, STEP_ULPS))
+    del p_d, o_d, p2, got, batch
+    _free(torch, dev)
+    dist.barrier()
+
+    # (H) the gradient of one olmoe-1b-7b MoE layer through the
+    # expert-parallel path over (2, 2) (capacity factor 8), against the
+    # local dispatch's on each data shard's tokens.
+    from repro_torch.models import sharded as sh
+    from repro_torch.sharding.manual import all_reduce, local_shard
+
+    cfg = _mesh_cfg("olmoe-1b-7b", size, capacity_factor=8.0)
+    params = _to_f32(init_tree(moe.moe_schema(cfg), 0, dev))
+    x = _seeded(torch, (nb, ns, cfg.d_model), 5, dev)
+    w = _seeded(torch, (nb, ns, cfg.d_model), 6, dev)
+    wspec, xspec = moe.ep_specs(cfg, ("data",))
+    local = {k: local_shard(params[k], wspec[k], mesh).detach().requires_grad_(True)
+             for k in wspec}
+    xl = local_shard(x, xspec, mesh).detach().requires_grad_(True)
+    y, aux = sh.moe(local, wspec, xl, ("data",), cfg, mesh)
+    loss = (y.float() * local_shard(w, xspec, mesh)).sum() + aux
+    grads = torch.autograd.grad(loss, [*local.values(), xl])
+    got = {k: gather(all_reduce(g, "data", mesh), P(*[e if e == "model" else None
+                                                      for e in wspec[k]]), mesh)
+           for k, g in zip(local, grads)}
+    got["x"] = gather(grads[-1], xspec, mesh)
+    res["moe_grad"] = {"leaves": len(got)}
+    if rank == 0:
+        ref = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        xr = x.detach().requires_grad_(True)
+        half = nb // 2
+        total = 0.0
+        for d in range(2):
+            yd, ad = moe.apply_moe(ref, xr[d * half:(d + 1) * half], cfg)
+            total = total + (yd.float() * w[d * half:(d + 1) * half]).sum() + ad
+        want = dict(zip([*ref, "x"], torch.autograd.grad(total, [*ref.values(), xr])))
+        rel = {k: float((got[k].double() - want[k].double()).norm()
+                        / want[k].double().norm().clamp_min(1e-300)) for k in got}
+        res["moe_grad"].update(rel=rel, worst=max(rel.values()),
+                               max_err=max(_diff(torch, got[k], want[k])[0] for k in got))
+    del params, x, w, local, xl, y, grads, got
+    _free(torch, dev)
+    dist.barrier()
+
     # (E) remap_mesh with a permutation.
     new = remap_mesh(mesh, MESH_PERM)
     res["remap"] = {"coord": list(mesh.get_coordinate()), "new": list(new.get_coordinate()),
@@ -2802,16 +2951,35 @@ def _to_f32(tree):
     return tree
 
 
-def _step_err(got, want, start):
+def _step_err(got, want, start, ulps=0):
     """The largest, over leaves, of |(got - start) - (want - start)| /
     |want - start| (Frobenius norms, float64): how far a step's change of
-    the parameters is from the wanted change."""
+    the parameters is from the wanted change. With ``ulps``, each element's
+    difference is first reduced by that many float32 units in the last
+    place of the parameter: a change of ~1e-5 to a norm weight of 1.0 is
+    ~100 units, so one unit of rounding either way would read 1e-2."""
     worst = 0.0
     for path, w in want.items():
         dw = w.double() - start[path].double()
         dg = got[path].double() - start[path].double()
-        worst = max(worst, float((dg - dw).norm() / dw.norm().clamp_min(1e-300)))
+        gap = (dg - dw).abs()
+        if ulps:
+            unit = 2.0 ** -23 * w.double().abs().clamp_min(start[path].double().abs())
+            gap = (gap - ulps * unit).clamp_min(0.0)
+        worst = max(worst, float(gap.norm() / dw.norm().clamp_min(1e-300)))
     return worst
+
+
+def _one_process_even_step(torch, cfg, opt, batch, dev):
+    """The unsharded even step (``make_train_step``, no mesh) from the
+    float32 initial parameters: (parameters, loss)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    params = _to_f32(model_lib.init_params(cfg, 0, device=dev))
+    params, _, m = make_train_step(cfg, opt)(params, adamw.init(params), batch)
+    return {k: v.detach() for k, v in adamw.leaves(params)}, float(m["loss"])
 
 
 def _one_process_step(torch, cfg, opt, batch, counts, dev):
@@ -2897,8 +3065,24 @@ def phase_mesh(torch, np, card, size="full", dev="cuda", timeout=900):
     sz = MESH_SIZES[size]
     log(f"[18 mesh] {MESH_WORLD} ranks on one {dev} device, gloo; collectives on "
         f"{dev} tensors: {r0['collectives']}; card: {card}")
-    for name in ("all_reduce", "all_gather"):
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor"):
         need(r0["collectives"][name] == "served", f"gloo did not serve {name}: {r0['collectives']}")
+
+    pre = r0["prefill"]
+    for r, rk in enumerate(ranks):
+        f = rk["prefill"]
+        need(f["cache_bad"] == 0, f"(F) rank {r}: {f['cache_bad']} cache values outside "
+             f"PARITY_TOL (max abs difference {f['cache_err']:.3e})")
+    need(pre["bad"] == 0, f"(F) {pre['bad']} sharded prefill logits outside PARITY_TOL "
+         f"(max abs difference {pre['max_err']:.3e})")
+    log(f"[18 mesh] (F) granite-3-8b{' smoke' if sz['smoke'] else ' published width and depth'}"
+        f" float32 over (data 1, model {MESH_WORLD}): sharded prefill of {sz['b']} x "
+        f"{sz['prompt']} tokens, last-token logits equal the unsharded plain prefill's (max abs "
+        f"difference {pre['max_err']:.3e}), {pre['cache_leaves']} cache leaves a rank, caches "
+        f"placed {pre['cache_spec']} (max abs difference over ranks "
+        f"{max(r['prefill']['cache_err'] for r in ranks):.3e}); none outside PARITY_TOL; "
+        f"{pre['secs']:.2f} s sharded against {pre['ref_secs']:.2f} s unsharded (host clock, "
+        f"synchronised); card: {card}")
 
     dec = r0["decode"]
     launches = [r["decode"]["launches"] for r in ranks]
@@ -2911,8 +3095,9 @@ def phase_mesh(torch, np, card, size="full", dev="cuda", timeout=900):
     ref_ms = statistics.median(dec["ref_secs"]) * 1e3
     plain_ms = statistics.median(dec["plain_secs"]) * 1e3
     log(f"[18 mesh] (A) granite-3-8b{' smoke' if sz['smoke'] else ' published width and depth'}"
-        f" float32 over (data 1, model {MESH_WORLD}), B {sz['b']}, cache {sz['slots']} "
-        f"slots, {sz['steps']} decode steps from {sz['prompt']}, kernel route: logits equal the "
+        f" float32 over (data 1, model {MESH_WORLD}), B {sz['b']}, (F)'s caches grown to "
+        f"{sz['slots']} slots, {sz['steps']} decode steps from {sz['prompt']}, kernel route: "
+        f"logits equal the "
         f"unsharded plain route's (max abs difference {dec['max_err']:.3e}, none outside "
         f"PARITY_TOL; the unsharded kernel route's {dec['unsharded_kernel_err']:.3e}); "
         f"flash_decode launches per rank {launches}")
@@ -2950,6 +3135,31 @@ def phase_mesh(torch, np, card, size="full", dev="cuda", timeout=900):
         f"leaf's change within {a['step_err']:.2e} of the one-process change (relative, "
         f"bound {MESH_STEP_RTOL}; the step at counts [1, 1] is {a['control_err']:.2e} off); "
         f"loss {a['loss']:.6f} vs {a['one_loss']:.6f}")
+    ev = r0["even"]
+    need(ev["bad"] == 0 and ev["moved"] == ev["leaves"], f"(G) even step: {ev}")
+    need(ev["sharded"] > 0, f"(G) no parameter was placed over the mesh: {ev}")
+    need(ev["step_err"] <= MESH_STEP_RTOL, f"(G) the step's change is {ev['step_err']:.3e} "
+         f"(relative) off the one-process step's, above {MESH_STEP_RTOL}")
+    need(ev["control_err"] > MESH_STEP_RTOL, f"(G) the check cannot tell the first slot's "
+         f"step from the whole one: {ev['control_err']:.3e}")
+    need(all(abs(r["even"]["loss"] - ev["one_loss"]) <= PARITY_TOL[1] + PARITY_TOL[0]
+             * abs(ev["one_loss"]) for r in ranks), "(G) even-step loss differs")
+    log(f"[18 mesh] (G) falcon-demo-100m{' smoke' if sz['smoke'] else ''} even train step over "
+        f"(data 2, model 2), {ev['sharded']} of {ev['leaves']} leaves placed over the mesh, "
+        f"ZeRO-1 moments: equal to the one-process make_train_step (max abs difference "
+        f"{ev['max_err']:.2e}, {ev['moved']} moved); each leaf's change within "
+        f"{ev['step_err']:.2e} of the one-process change (relative, {STEP_ULPS} float32 units "
+        f"forgiven, bound {MESH_STEP_RTOL}; the "
+        f"step on the first slot alone is {ev['control_err']:.2e} off); loss {ev['loss']:.6f} "
+        f"vs {ev['one_loss']:.6f}")
+    mg = r0["moe_grad"]
+    need(mg["worst"] <= MESH_STEP_RTOL, f"(H) expert-parallel gradients off the local "
+         f"dispatch's: {mg['rel']}")
+    log(f"[18 mesh] (H) olmoe-1b-7b MoE layer{' (smoke)' if sz['smoke'] else ''} over (data 2, "
+        f"model 2), capacity factor 8: the gradients of its {mg['leaves'] - 1} weights and of "
+        f"its input through the expert-parallel path equal the local dispatch's on each data "
+        f"shard (worst relative norm difference {mg['worst']:.2e}, bound {MESH_STEP_RTOL}; max "
+        f"abs {mg['max_err']:.2e})")
     new = r0["remap"]["ranks"]
     for rank, r in enumerate(ranks):
         pos = [(i, j) for i, row in enumerate(new) for j, v in enumerate(row) if v == rank][0]
@@ -2958,6 +3168,187 @@ def phase_mesh(torch, np, card, size="full", dev="cuda", timeout=900):
     log(f"[18 mesh] (E) remap_mesh {MESH_PERM}: ranks at {new}, each rank's coordinate moved "
         f"as the permutation says; phase {secs:.1f} s")
     return {"ranks": ranks, "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 19
+# The dry-run twin on the card (repro_torch.launch.dryrun), in a child
+# process: its fake process group of 256 or 512 ranks must not live in this
+# one. (arch, shape, multi_pod): granite-3-8b at every shape, mamba2-2.7b and
+# olmoe-1b-7b (expert-parallel, with its gradient) training, jamba's prefill
+# (FSDP, Mamba2, MoE), and granite-3-8b training over two pods.
+DRYRUN_COMBOS = (
+    ("granite-3-8b", "train_4k", False), ("granite-3-8b", "prefill_32k", False),
+    ("granite-3-8b", "decode_32k", False), ("granite-3-8b", "long_500k", False),
+    ("mamba2-2.7b", "train_4k", False), ("olmoe-1b-7b", "train_4k", False),
+    ("jamba-1.5-large-398b", "prefill_32k", False), ("granite-3-8b", "train_4k", True),
+)
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+#: the step must do at least this share of the analytic model operations
+#: per device (2 N_active tokens inference, 6 N_active tokens training, as
+#: benchmarks/roofline.py counts them): the matrix products of the model
+DRYRUN_FLOPS_SHARE = 0.9
+#: seconds after the script's start by which the CPU (FakeTensorMode)
+#: estimates must be done; the ones still running then are stopped and
+#: logged as not finished
+DRYRUN_CPU_DEADLINE = 840
+
+
+def _dryrun_child(combos, out_path):
+    """Each combination's card record (or its error) to ``out_path``."""
+    import traceback
+
+    from repro_torch.launch import dryrun
+
+    out = []
+    for arch, shape, mp in combos:
+        try:
+            out.append({"ok": True, **dryrun.dryrun(arch, shape, mp, "cuda")})
+        except Exception as exc:  # noqa: BLE001  reported by the parent, which fails
+            out.append({"ok": False, "arch": arch, "shape": shape, "multi_pod": mp,
+                        "error": f"{type(exc).__name__}: {exc}"[:600],
+                        "trace": traceback.format_exc()[-2000:]})
+        import gc
+
+        import torch
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def start_dryrun_estimates():
+    """The CPU route (``--device cpu``: FakeTensorMode, MemTracker's peak)
+    of each phase-19 combination, one process each at the lowest priority
+    and on the upper half of the host's cores, beside phases 1-18: they use
+    the host, not the card, and the longest (a train step at 0.2-0.5 ms of
+    host time per eager operation) takes minutes."""
+    import os
+    import shutil
+
+    cores = sorted(os.sched_getaffinity(0))
+    theirs = set(cores[len(cores) // 2:]) or set(cores)
+
+    def lowly():
+        os.nice(19)
+        os.sched_setaffinity(0, theirs)
+
+    cpu_dir = DRYRUN_DIR / "cpu"
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    cpu_dir.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for arch, shape, mp in DRYRUN_COMBOS:
+        log_file = open(cpu_dir / f"{arch}__{shape}__{mp}.log", "w")
+        procs.append((log_file, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--multi-pod", "on" if mp else "off", "--device", "cpu", "--out",
+             str(cpu_dir)], cwd=ROOT, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+            preexec_fn=lowly)))
+    return procs
+
+
+def _expected_argument_bytes(arch, shape, multi_pod):
+    """Rank 0's argument bytes worked out from the port's partition
+    functions on the mesh's axis names and sizes alone (no process group):
+    every leaf's shard shape times its item size."""
+    import math
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import P
+    from repro_torch.sharding import partition as part
+
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh = SimpleNamespace(mesh_dim_names=names, shape=(2, 16, 16) if multi_pod else (16, 16))
+    sizes, coord = part.axis_sizes(mesh), dict.fromkeys(names, 0)
+    cfg = get_config(arch)
+    info = INPUT_SHAPES[shape]
+    dp = part.mesh_axis_size(mesh, part.batch_axes(mesh))
+    pspecs = part.param_specs(cfg, mesh)
+    if cfg.total_params() * 2 / sizes["model"] > dryrun.FSDP_SERVE_BYTES:
+        pspecs = part.fsdp_param_specs(cfg, mesh)
+    shapes = param_shapes(cfg)
+    inputs = dryrun.input_specs(cfg, shape, dp)
+
+    def total(tree, specs, dtype=None):
+        if isinstance(tree, dict):
+            return sum(total(tree[k], specs[k], dtype) for k in tree)
+        local = [sl.stop - sl.start for sl in part.shard_slices(tree.shape, specs, sizes, coord)]
+        return math.prod(local) * (dtype or tree.dtype).itemsize
+
+    nbytes = total(shapes, pspecs)
+    if info["kind"] == "train":
+        ospecs = adamw.opt_state_specs(pspecs, shapes, mesh)
+        nbytes += 4 + 2 * total(shapes, ospecs.mu, torch.float32)
+        return nbytes + total(inputs, part.train_batch_specs(cfg, mesh))
+    gb = info["global_batch"]
+    if info["kind"] == "prefill":
+        return nbytes + total(inputs, part.serve_batch_specs(cfg, mesh, gb))
+    return (nbytes + total(inputs["tokens"], part.decode_token_specs(cfg, mesh, gb))
+            + total(inputs["caches"], part.cache_specs(cfg, mesh, gb)))
+
+
+def phase_dryrun(torch, card, estimates, t_start):
+    """The dry-run of DRYRUN_COMBOS on the card in a child process: each
+    record's argument bytes equal to the shard-shape sum worked out here,
+    its peak within the card's memory, its operations at least
+    DRYRUN_FLOPS_SHARE of the model's per device; the CPU route's
+    MemTracker estimate (started beside phases 1-18) logged beside each
+    measured peak. Returns the records."""
+    from repro_torch.configs.base import INPUT_SHAPES, get_config
+
+    out_path = DRYRUN_DIR / "card.json"
+    t0 = time.perf_counter()
+    codes = _run_procs(_dryrun_child, [(DRYRUN_COMBOS, str(out_path))], 600, "the dry-run")
+    need(codes == [0] and out_path.exists(), f"the dry-run child exited with {codes}")
+    secs = time.perf_counter() - t0
+    records = json.loads(out_path.read_text())
+    failed = [r for r in records if not r["ok"]]
+    need(not failed, "dry-run combinations failed on the card: "
+         + "; ".join(f"{r['arch']} {r['shape']}: {r['error']}" for r in failed)
+         + (f"\n{failed[0]['trace']}" if failed else ""))
+    # The CPU estimates: wait for them until the deadline, then stop the rest.
+    deadline = t_start + DRYRUN_CPU_DEADLINE
+    for log_file, proc in estimates:
+        try:
+            proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log_file.close()
+    cap = torch.cuda.get_device_properties(0).total_memory
+    log(f"[19 dryrun] {len(records)} combinations on the card in {secs:.1f} s (one child "
+        f"process, rank 0 of a fake process group); card: {card}")
+    for (arch, shape, mp), rec in zip(DRYRUN_COMBOS, records):
+        bpd = rec["bytes_per_device"]
+        want = _expected_argument_bytes(arch, shape, mp)
+        need(bpd["argument"] == want, f"(19) {arch} {shape} {rec['mesh']}: argument bytes "
+             f"{bpd['argument']} != the shard-shape sum {want}")
+        need(bpd["peak"] <= cap, f"(19) {arch} {shape} {rec['mesh']}: peak {bpd['peak']} "
+             f"above the card's {cap} bytes")
+        info, cfg = INPUT_SHAPES[shape], get_config(arch)
+        tokens = info["global_batch"] * (1 if info["kind"] == "decode" else info["seq_len"])
+        model = (6.0 if info["kind"] == "train" else 2.0) * cfg.active_params() * tokens
+        model /= rec["n_devices"]
+        need(rec["flops"] >= DRYRUN_FLOPS_SHARE * model, f"(19) {arch} {shape} "
+             f"{rec['mesh']}: {rec['flops']:.3e} operations, below {DRYRUN_FLOPS_SHARE} x the "
+             f"model's {model:.3e} per device")
+        cpu = DRYRUN_DIR / "cpu" / f"{arch}__{shape}__{rec['mesh'].replace('x', '_')}.json"
+        est = (f"{json.loads(cpu.read_text())['bytes_per_device']['peak'] / 2**30:.2f} GiB"
+               if cpu.exists() else "not finished by the deadline")
+        coll = ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in rec["collective_bytes"].items())
+        log(f"[19 dryrun] {arch} {shape} {rec['mesh']}: argument {bpd['argument']} B = the "
+            f"shard-shape sum; peak {bpd['peak'] / 2**30:.2f} GiB on the card (CPU "
+            f"FakeTensorMode + MemTracker estimate {est}), temp {bpd['temp'] / 2**30:.2f} GiB; "
+            f"{rec['flops']:.4e} operations ({rec['flops'] / model:.2f} x the model's "
+            f"{model:.4e}); bytes accessed {rec['bytes_accessed']:.4e}; collectives: "
+            f"{coll or 'none'}; lower {rec['lower_s']} s, step {rec['step_s']} s")
+    return records
 
 
 def main() -> int:
@@ -2981,8 +3372,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    estimates = []
     try:
         card = phase_env(torch)
+        estimates = start_dryrun_estimates()
         phase_build()
         errs = phase_kernels(torch, np)
         errs.update(phase_attention_kernels(torch))
@@ -3011,6 +3404,7 @@ def main() -> int:
         gc.collect()            # the twins' trainers hold reference cycles
         torch.cuda.empty_cache()
         mesh = phase_mesh(torch, np, card)
+        phase_dryrun(torch, card, estimates, t_start)
         for row in rows:
             if row["name"] == "flash_decode":
                 row["olmoe_launches"] = olmoe_serve["flash_decode"]
@@ -3024,6 +3418,12 @@ def main() -> int:
     except SmokeError as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        for log_file, proc in estimates:      # stopped here if a phase failed first
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

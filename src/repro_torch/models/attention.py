@@ -116,6 +116,28 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, cols=None):
     return tuple(out)
 
 
+def attend(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor | None,
+    *,
+    window: int = 0,
+    use_kernel: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training/prefill self-attention over the heads of ``params``'s
+    columns (all, or a rank's). x: (B, S, D). Returns (out (B, S, D), k, v),
+    k and v (B, S, KVH, hd) positioned: the prefill's cache rows."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    q, k = _apply_positions(q, k, positions, cfg)
+    if use_kernel:
+        out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        out = blocked_attention(q, k, v, causal=True, window=window)
+    return layers.matmul(out.reshape(b, s, -1), params["wo"]), k, v
+
+
 def apply_attention(
     params: dict,
     x: torch.Tensor,
@@ -126,14 +148,7 @@ def apply_attention(
     use_kernel: bool = False,
 ) -> torch.Tensor:
     """Training/prefill self-attention. x: (B, S, D)."""
-    b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
-    q, k = _apply_positions(q, k, positions, cfg)
-    if use_kernel:
-        out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
-    else:
-        out = blocked_attention(q, k, v, causal=True, window=window)
-    return layers.matmul(out.reshape(b, s, -1), params["wo"])
+    return attend(params, x, cfg, positions, window=window, use_kernel=use_kernel)[0]
 
 
 # ----------------------------------------------------------------- decode

@@ -113,15 +113,29 @@ def embed_schema(cfg: ArchConfig) -> Schema:
     return {"tok": ParamDef((v, d), ("model", None))}
 
 
-def apply_embed(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def lookup(table: torch.Tensor, ids: torch.Tensor, row0: int = 0) -> torch.Tensor:
+    """Rows of ``table`` for token ids, where ``table`` holds the vocab rows
+    ``row0 .. row0 + len(table)``; ids outside them give zero rows (a
+    rank's part of a vocab-sharded lookup)."""
+    rows = table.shape[0]
+    local = ids.long() - row0
+    mine = (local >= 0) & (local < rows)
+    return torch.where(mine[..., None], table[local.clamp(0, rows - 1)], 0)
+
+
+def apply_embed(
+    params: dict, tokens: torch.Tensor, cfg: ArchConfig, row0: int = 0
+) -> torch.Tensor:
+    """The embedding of ``tokens``; ``params["tok"]`` may hold the vocab
+    rows from ``row0`` only (see :func:`lookup`)."""
     if cfg.modality == "audio_codes":
         # tokens: (B, S, K) -> sum of the K per-codebook embeddings
         # (MusicGen's delay-pattern interleave is the data stub's job).
-        out = params["tok"][0][tokens[..., 0]]
+        out = lookup(params["tok"][0], tokens[..., 0], row0)
         for k in range(1, cfg.num_codebooks):
-            out = out + params["tok"][k][tokens[..., k]]
+            out = out + lookup(params["tok"][k], tokens[..., k], row0)
         return out.to(cfg.activation_dtype)
-    return params["tok"][tokens].to(cfg.activation_dtype)
+    return lookup(params["tok"], tokens, row0).to(cfg.activation_dtype)
 
 
 def head_schema(cfg: ArchConfig) -> Schema:

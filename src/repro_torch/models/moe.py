@@ -34,8 +34,11 @@ shared experts are column/row parallel, and the partial outputs meet in one
 all-reduce over ``model``; the aux loss is averaged over ``model`` and the
 batch axes. Where the batch does not divide the DP size the tokens stay
 replicated and only ``model`` is manual. With no mesh, or a model axis of
-1, it is the local dispatch. The expert-parallel path is for inference: its
-collectives carry no gradient, and it raises under autograd.
+1, it is the local dispatch. :func:`apply_moe`'s expert-parallel path is
+for inference and raises under autograd: it takes whole or DTensor weights
+whose gradients it cannot place. The sharded train step trains through
+:func:`moe_ep_local` on local shards (:mod:`repro_torch.models.sharded`),
+whose collectives carry their gradients.
 """
 from __future__ import annotations
 
@@ -89,9 +92,17 @@ def route(
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e.
     pe = probs.mean(dim=0)  # (E,)
-    fe = torch.bincount(idx.reshape(-1), minlength=e).float() / idx.numel()
+    fe = _counts(idx.reshape(-1), e).float() / idx.numel()
     aux = e * torch.sum(fe * pe)
     return gates, idx, aux
+
+
+def _counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``bincount(ids, minlength=n)`` for ids in [0, n), as a scatter of
+    ones: its shape does not depend on the values (so it runs on fake
+    tensors too, where ``bincount`` cannot)."""
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
 
 
 def dispatch(
@@ -114,7 +125,7 @@ def dispatch(
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = _counts(flat_e, e)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(t * k, device=idx.device) - starts[sorted_e]
     local_e = sorted_e - e_offset
@@ -178,11 +189,12 @@ def _moe_core(
     return y, aux
 
 
-def _ep_axes(cfg: ArchConfig):
+def _ep_axes(cfg: ArchConfig, mesh=None):
     """(mesh, batch axes, model axis size) when the expert-parallel path
-    applies under the ambient mesh, else None (no mesh, no model axis, a
-    model axis of 1, ``moe_shard != "experts"`` or E not dividing it)."""
-    mesh = ambient_mesh()
+    applies on ``mesh`` (None: the ambient mesh), else None (no mesh, no
+    model axis, a model axis of 1, ``moe_shard != "experts"`` or E not
+    dividing it)."""
+    mesh = ambient_mesh() if mesh is None else mesh
     if mesh is None:
         return None
     names = tuple(mesh.mesh_dim_names or ())
@@ -227,7 +239,7 @@ def moe_ep_local(
     ``e_local`` experts and its column/row slices of the shared experts,
     ``hn`` (b, s, D) its normalised tokens. Returns (y (b, s, D) in hn's
     type, aux averaged over ``model`` and ``ba``)."""
-    from repro_torch.sharding.manual import all_reduce, axis_index
+    from repro_torch.sharding.manual import axis_index, leave
     from repro_torch.sharding.partition import mesh_axis_size
 
     bl, sl, d = hn.shape
@@ -240,9 +252,9 @@ def moe_ep_local(
         # Column/row tensor-parallel over the same axis: the row-parallel
         # partial rides the same all-reduce.
         y = y + _shared(params, xf).float()
-    y = all_reduce(y, "model", mesh)
+    y = leave(y, "model", mesh)
     axes = ("model", *ba)
-    aux = all_reduce(aux, axes, mesh) / mesh_axis_size(mesh, axes)
+    aux = leave(aux, axes, mesh) / mesh_axis_size(mesh, axes)
     return y.to(hn.dtype).reshape(bl, sl, d), aux
 
 
@@ -274,8 +286,9 @@ def apply_moe(
     mesh, ba, _ = ep
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t.requires_grad for t in params.values() if isinstance(t, torch.Tensor))):
-        raise RuntimeError("the expert-parallel MoE's collectives carry no gradient: "
-                           "run it under torch.no_grad(), or train without a model axis")
+        raise RuntimeError("apply_moe's expert-parallel path places no gradient: run it "
+                           "under torch.no_grad(), or train through make_train_step under "
+                           "the mesh")
     if x.shape[0] % mesh_axis_size(mesh, ba):
         # Batch doesn't divide the DP axes: manual over the model axis
         # only; tokens are replicated across DP.

@@ -125,26 +125,32 @@ def ssd_scan(
     return y.to(xdt), carry.to(xdt)
 
 
-def apply_mamba(
+def mamba_forward(
     params: dict,
     x: torch.Tensor,
     cfg: ArchConfig,
     *,
     use_kernel: bool = False,
-) -> torch.Tensor:
-    """Training/prefill Mamba2 block. x: (B, S, D)."""
+    out_norm=None,
+) -> tuple[torch.Tensor, dict]:
+    """Training/prefill Mamba2 block over the heads of ``params``'s columns
+    (all, or a rank's: the head count is ``a_log``'s; the B/C groups are
+    whole). x: (B, S, D). Returns (out (B, S, D), the block's cache: final
+    state and conv histories). ``out_norm(y, weight, eps)`` normalises the
+    gated output (None: :func:`repro_torch.models.layers.rmsnorm`; a rank's
+    heads need the mean square over every rank's)."""
     bsz, s, _ = x.shape
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
+    h, p = params["a_log"].shape[0], cfg.ssm_head_dim
+    g, n, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv_width
 
     hn = layers.rmsnorm(x, params["norm"], cfg.norm_eps)
     z = layers.matmul(hn, params["w_z"])
-    xin = layers.matmul(hn, params["w_x"])
-    bc = layers.matmul(hn, params["w_bc"])
+    xin_raw = layers.matmul(hn, params["w_x"])
+    bc_raw = layers.matmul(hn, params["w_bc"])
     dt = F.softplus(layers.matmul(hn, params["w_dt"]) + params["dt_bias"])
 
-    xin = F.silu(causal_conv(xin, params["conv_x"]))
-    bc = F.silu(causal_conv(bc, params["conv_bc"]))
+    xin = F.silu(causal_conv(xin_raw, params["conv_x"]))
+    bc = F.silu(causal_conv(bc_raw, params["conv_bc"]))
     b_mat, c_mat = torch.chunk(bc, 2, dim=-1)
 
     a = -torch.exp(params["a_log"].float())
@@ -155,13 +161,29 @@ def apply_mamba(
     if use_kernel:
         from repro_torch.kernels import ops as kernel_ops
 
-        y, _ = kernel_ops.ssd_scan(xh, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
+        y, final_state = kernel_ops.ssd_scan(xh, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
     else:
-        y, _ = ssd_scan(xh, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
+        y, final_state = ssd_scan(xh, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
     y = y + params["d_skip"][:, None] * xh  # per-head skip
     y = y.reshape(bsz, s, h * p)
-    y = layers.rmsnorm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
-    return layers.matmul(y, params["w_out"])
+    y = (out_norm or layers.rmsnorm)(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    cache = {
+        "state": final_state,
+        "conv_x": xin_raw[:, -(w - 1):],
+        "conv_bc": bc_raw[:, -(w - 1):],
+    }
+    return layers.matmul(y, params["w_out"]), cache
+
+
+def apply_mamba(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    *,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Training/prefill Mamba2 block. x: (B, S, D)."""
+    return mamba_forward(params, x, cfg, use_kernel=use_kernel)[0]
 
 
 # ----------------------------------------------------------------- decode
@@ -186,12 +208,13 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 def decode_mamba(
-    params: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig
+    params: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig, out_norm=None
 ) -> tuple[torch.Tensor, dict]:
-    """One-token Mamba2 step. x: (B, 1, D). Returns (y, new cache); the
-    cache passed in is not modified."""
+    """One-token Mamba2 step over the heads of ``params``'s columns (see
+    :func:`mamba_forward`; the cache holds the same heads). x: (B, 1, D).
+    Returns (y, new cache); the cache passed in is not modified."""
     bsz = x.shape[0]
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    h, p = params["a_log"].shape[0], cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
     rep = h // g
     f32 = torch.float32
@@ -225,7 +248,7 @@ def decode_mamba(
     y = torch.einsum("bhn,bhpn->bhp", c_h.to(f32), state)
     y = y + params["d_skip"][:, None].to(f32) * xh.to(f32)
     y = y.reshape(bsz, 1, h * p).to(x.dtype)
-    y = layers.rmsnorm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    y = (out_norm or layers.rmsnorm)(y * F.silu(z), params["out_norm"], cfg.norm_eps)
     new_cache = {
         "state": state.to(cache["state"].dtype),
         "conv_x": xin_hist[:, 1:],

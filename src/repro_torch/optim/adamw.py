@@ -88,14 +88,18 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def update(
-    cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict
+    cfg: AdamWConfig, grads: dict, state: AdamWState, params: dict,
+    gnorm: torch.Tensor | None = None,
 ) -> tuple[dict, AdamWState]:
     """One AdamW step. ``params``, ``state.mu`` and ``state.nu`` are updated
-    in place and returned, with a new step counter."""
+    in place and returned, with a new step counter. ``gnorm``: the global
+    gradient norm, where ``grads`` holds only a rank's shards of it (None:
+    ``global_norm(grads)``)."""
     step = state.step + 1
     lr = schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1, b2 = cfg.beta1, cfg.beta2

@@ -10,16 +10,16 @@ Prefill runs the plain blocked attention and the plain chunked SSD scan,
 as in the reference (no kernel); decode takes ``use_kernel`` to the CUDA
 flash-decode kernel (a Mamba2 decode step is the recurrence, no kernel).
 
-Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) the decode
-step runs per rank on local shards with explicit collectives
-(:mod:`repro_torch.serve.sharded_decode`).
+Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) both steps
+run per rank on local shards with explicit collectives
+(:mod:`repro_torch.serve.sharded_prefill`,
+:mod:`repro_torch.serve.sharded_decode`).
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers, model as model_lib, moe, ssm, transformer
@@ -56,13 +56,20 @@ def make_decode_step(
 
 
 # ------------------------------------------------------------------ prefill
-def make_prefill_step(cfg: ArchConfig, seq_len: int) -> Callable:
+def make_prefill_step(cfg: ArchConfig, seq_len: int, *, seq_shard: bool = True) -> Callable:
     """Forward over the prompt, returning (last-token logits, filled caches
     stacked over periods: (n_periods, B, S, KVH, hd) for attention, the
-    final state and conv histories for Mamba2)."""
+    final state and conv histories for Mamba2). Under an ambient mesh the
+    caches come placed by ``cache_specs(..., seq_shard=seq_shard)``."""
     window = serve_window(cfg, seq_len)
 
     def prefill(params, batch):
+        mesh = ambient_mesh()
+        if mesh is not None:
+            from repro_torch.serve import sharded_prefill
+
+            return sharded_prefill.prefill_step(params, batch, cfg, mesh, window=window,
+                                                seq_shard=seq_shard)
         x = (
             batch["embeds"].to(cfg.activation_dtype)
             if cfg.modality == "vision_embeds"
@@ -78,9 +85,10 @@ def make_prefill_step(cfg: ArchConfig, seq_len: int) -> Callable:
                 key = f"sub{j}"
                 p = period[key]
                 if sub.mixer == "attn":
-                    dh, c = _prefill_attention(p["attn"], h, cfg, positions, window)
+                    dh, k, v = attention.attend(p["attn"], h, cfg, positions, window=window)
+                    c = {"k": k, "v": v}
                 else:
-                    dh, c = _prefill_mamba(p["mamba"], h, cfg)
+                    dh, c = ssm.mamba_forward(p["mamba"], h, cfg)
                 h = h + dh
                 cache_out[key] = c
                 if sub.mlp == "mlp":
@@ -99,47 +107,3 @@ def make_prefill_step(cfg: ArchConfig, seq_len: int) -> Callable:
         return logits, caches
 
     return prefill
-
-
-def _prefill_attention(p, x, cfg, positions, window):
-    b, s, _ = x.shape
-    q, k, v = attention._project_qkv(p, x, cfg)
-    q, k = attention._apply_positions(q, k, positions, cfg)
-    out = attention.blocked_attention(q, k, v, causal=True, window=window)
-    return layers.matmul(out.reshape(b, s, -1), p["wo"]), {"k": k, "v": v}
-
-
-def _prefill_mamba(p, x, cfg):
-    b, s, _ = x.shape
-    h, pd = cfg.ssm_heads, cfg.ssm_head_dim
-    g, n, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv_width
-
-    hn = layers.rmsnorm(x, p["norm"], cfg.norm_eps)
-    z = layers.matmul(hn, p["w_z"])
-    xin_raw = layers.matmul(hn, p["w_x"])
-    bc_raw = layers.matmul(hn, p["w_bc"])
-    dt = F.softplus(layers.matmul(hn, p["w_dt"]) + p["dt_bias"])
-
-    xin = F.silu(ssm.causal_conv(xin_raw, p["conv_x"]))
-    bc = F.silu(ssm.causal_conv(bc_raw, p["conv_bc"]))
-    b_mat, c_mat = torch.chunk(bc, 2, dim=-1)
-
-    a = -torch.exp(p["a_log"].float())
-    xh = xin.reshape(b, s, h, pd)
-    y, final_state = ssm.ssd_scan(
-        xh,
-        dt,
-        a,
-        b_mat.reshape(b, s, g, n),
-        c_mat.reshape(b, s, g, n),
-        chunk=cfg.ssm_chunk,
-    )
-    y = y + p["d_skip"][:, None] * xh
-    y = y.reshape(b, s, h * pd)
-    y = layers.rmsnorm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    cache = {
-        "state": final_state,
-        "conv_x": xin_raw[:, -(w - 1) :],
-        "conv_bc": bc_raw[:, -(w - 1) :],
-    }
-    return layers.matmul(y, p["w_out"]), cache

@@ -23,56 +23,34 @@ taken as the same full value on every rank and sliced. Per layer:
   the rank's local cache.
 * **Out-projections, row parallel**: the partial products are
   all-reduced over ``model``.
-* **Embedding**: vocab-sharded rows; each rank looks up the tokens in its
-  rows, zeros elsewhere, and the rows are all-reduced over ``model``.
-* **Head**: vocab-sharded columns; the logits stay sharded as
-  ``logits_spec`` places them (padding columns masked by global index).
-* **MoE**: the expert-parallel path of :mod:`repro_torch.models.moe` where
-  it applies (its capacity is each data rank's, as the reference's
-  ``shard_map``); otherwise the dispatch runs on the batch all-gathered
-  over the DP axes, and experts sharded on their hidden dim ("ff") give
-  partial outputs all-reduced over ``model``.
-* **Mamba2** (no per-rank form in this slice): its parameters and its
-  model-sharded cache leaves are all-gathered over ``model``, the step runs
-  whole on every rank, and each rank keeps its slice of the new cache.
+* **Embedding, head, MLP, MoE**: the per-rank layers of
+  :mod:`repro_torch.models.sharded` (vocab-sharded rows and columns, the
+  logits left sharded as ``logits_spec`` places them; the expert-parallel
+  MoE where it applies). Where the cache holds whole sequences and its own
+  KV heads, the attention is the unsharded
+  :func:`repro_torch.models.attention.decode_attention` on the rank's
+  heads; this module keeps only the other layouts' cache write and the
+  sequence-sharded partial-softmax combine.
+* **Mamba2**: its parameters and model-sharded cache leaves are
+  all-gathered over ``model``, the one-token step runs whole on every rank
+  (one token's work; the prefill and train steps run a rank's heads), and
+  each rank keeps its slice of the new cache.
+
+Parameters may be placed by ``param_specs`` or ``fsdp_param_specs``: an
+FSDP weight is all-gathered over the DP axes at use, one period at a time.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.models import attention, layers, ssm
+from repro_torch.models import sharded as sh
 from repro_torch.models.attention import NEG_INF
-from repro_torch.sharding import P
 from repro_torch.sharding import partition as part
 from repro_torch.sharding.manual import (
-    all_gather, all_reduce, as_dtensor, axis_index, gather, is_dtensor, local_shard,
+    all_gather, all_reduce, as_dtensor, axis_index, gather, is_dtensor, leave, local_shard,
 )
-
-
-def _locals(tree, specs, mesh):
-    """``(local tensors, specs)`` of a tree: a DTensor's own placements, a
-    plain tensor sliced by ``specs``."""
-    if not isinstance(tree, dict):
-        spec = part.spec_of(tree) if is_dtensor(tree) else specs
-        return local_shard(tree, spec, mesh), spec
-    loc, sp = {}, {}
-    for k, v in tree.items():
-        loc[k], sp[k] = _locals(v, specs[k], mesh)
-    return loc, sp
-
-
-def _view(tree, i):
-    """Period ``i`` of stacked local tensors / their specs (leading dim off)."""
-    if isinstance(tree, P):
-        return P(*tree[1:])
-    if isinstance(tree, dict):
-        return {k: _view(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _sharded(spec: P, dim: int) -> bool:
-    return "model" in part.spec_axes(spec[dim])
 
 
 def decode_step(
@@ -87,34 +65,37 @@ def decode_step(
                         "(repro_torch.sharding.partition.distribute)")
     pos = int(pos)
     b = tokens.shape[0]
-    p_loc, p_spec = _locals(params, part.param_specs(cfg, mesh), mesh)
+    p_loc, p_spec = sh.local_tree(params, part.param_specs(cfg, mesh), mesh)
     tok_spec0 = part.decode_token_specs(cfg, mesh, b)
     tok_spec = part.spec_of(tokens) if is_dtensor(tokens) else tok_spec0
     tok = local_shard(tokens, tok_spec, mesh)
-    c_loc, c_spec = _locals(caches, part.cache_specs(cfg, mesh, b), mesh)
+    tok_axes = part.spec_axes(tok_spec[0])
+    c_loc, c_spec = sh.local_tree(caches, part.cache_specs(cfg, mesh, b), mesh)
     attn = [f"sub{j}" for j, sub in enumerate(cfg.period) if sub.mixer == "attn"]
     s_max = caches[attn[0]]["k"].shape[2] if attn else 0   # the global cache length
 
-    x = _embed(p_loc["embed"], p_spec["embed"], tok, cfg, mesh)
+    x = sh.embed(*sh.use_tree(p_loc["embed"], p_spec["embed"], mesh), tok, cfg, mesh)
     for i in range(cfg.n_periods):
-        period, pspec = _view(p_loc["blocks"], i), _view(p_spec["blocks"], i)
-        cache, cspec = _view(c_loc, i), _view(c_spec, i)
+        period, pspec = sh.period(p_loc["blocks"], i), sh.period(p_spec["blocks"], i)
+        cache, cspec = sh.period(c_loc, i), sh.period(c_spec, i)
         for j, sub in enumerate(cfg.period):
             key = f"sub{j}"
             if sub.mixer == "attn":
-                x = x + _attention(period[key]["attn"], pspec[key]["attn"], x,
-                                   cache[key], cspec[key], pos, s_max, cfg, mesh,
+                x = x + _attention(*sh.use_tree(period[key]["attn"], pspec[key]["attn"], mesh),
+                                   x, cache[key], cspec[key], pos, s_max, cfg, mesh,
                                    window, use_kernel)
             else:
-                x = x + _mamba(period[key]["mamba"], pspec[key]["mamba"], x,
-                               cache[key], cspec[key], cfg, mesh)
+                x = x + _mamba(*sh.use_tree(period[key]["mamba"], pspec[key]["mamba"], mesh),
+                               x, cache[key], cspec[key], cfg, mesh)
             if sub.mlp == "mlp":
-                x = x + _mlp(period[key]["mlp"], pspec[key]["mlp"], x, cfg, mesh)
+                x = x + sh.mlp(*sh.use_tree(period[key]["mlp"], pspec[key]["mlp"], mesh), x,
+                               cfg, mesh)
             elif sub.mlp == "moe":
-                x = x + _moe(period[key]["moe"], pspec[key]["moe"], x, tok_spec, b, cfg,
-                             mesh)
-    x = layers.rmsnorm(x, p_loc["final_norm"], cfg.norm_eps)
-    logits = _head(p_loc["head"], p_spec["head"], x, cfg, mesh)
+                x = x + sh.moe(*sh.use_tree(period[key]["moe"], pspec[key]["moe"], mesh), x,
+                               tok_axes, cfg, mesh)[0]
+    final_norm, _ = sh.use(p_loc["final_norm"], p_spec["final_norm"], mesh)
+    x = layers.rmsnorm(x, final_norm, cfg.norm_eps)
+    logits = sh.head(*sh.use_tree(p_loc["head"], p_spec["head"], mesh), x, cfg, mesh)
 
     lspec = part.logits_spec(cfg, mesh, b)
     gshape = (b, 1, *((cfg.num_codebooks,) if cfg.modality == "audio_codes" else ()),
@@ -122,113 +103,38 @@ def decode_step(
     return as_dtensor(logits, lspec, mesh, shape=gshape), caches
 
 
-# ------------------------------------------------------------- embed, head
-def _embed(p, spec, tok, cfg: ArchConfig, mesh):
-    if cfg.modality == "vision_embeds":
-        return tok.to(cfg.activation_dtype)      # already embeddings
-    table = p["tok"]
-    audio = cfg.modality == "audio_codes"
-    vdim = 1 if audio else 0
-    if not _sharded(spec["tok"], vdim):
-        return layers.apply_embed(p, tok, cfg)
-    rows = table.shape[vdim]
-    ids = tok.long() - axis_index(mesh, "model") * rows
-    mine = (ids >= 0) & (ids < rows)
-    ids = ids.clamp(0, rows - 1)
-    if not audio:
-        got = torch.where(mine[..., None], table[ids], 0)
-        return all_reduce(got, "model", mesh).to(cfg.activation_dtype)
-    # Each codebook's rows meet exactly (one rank holds each), then add in
-    # codebook order, as the unsharded lookup adds them.
-    got = torch.stack([torch.where(mine[..., k, None], table[k][ids[..., k]], 0)
-                       for k in range(cfg.num_codebooks)])
-    got = all_reduce(got, "model", mesh)
-    out = got[0]
-    for k in range(1, cfg.num_codebooks):
-        out = out + got[k]
-    return out.to(cfg.activation_dtype)
-
-
-def _head(p, spec, x, cfg: ArchConfig, mesh):
-    vdim = 2 if cfg.modality == "audio_codes" else 1
-    cols = p["w"].shape[vdim]
-    col0 = axis_index(mesh, "model") * cols if _sharded(spec["w"], vdim) else 0
-    return layers.apply_head(p, x, cfg, col0=col0)
-
-
-# ----------------------------------------------------------------- layers
-def _row_parallel(y, sharded: bool, mesh):
-    return all_reduce(y, "model", mesh) if sharded else y
-
-
-def _mlp(p, spec, x, cfg: ArchConfig, mesh):
-    return _row_parallel(layers.apply_mlp(p, x, cfg), _sharded(spec["wo"], 0), mesh)
-
-
-def _moe(p, spec, x, tok_spec, batch: int, cfg: ArchConfig, mesh):
-    hn = layers.rmsnorm(x, p["norm"], cfg.norm_eps)
-    ep = moe._ep_axes(cfg)
-    if ep is not None:
-        _, ba, _ = ep
-        if batch % part.mesh_axis_size(mesh, ba):
-            ba = ()
-        wspec, _ = moe.ep_specs(cfg, ba)
-        for k, want in wspec.items():
-            if spec[k] != want:
-                raise ValueError(f"expert-parallel MoE: {k} placed {spec[k]}, needs {want}")
-        return moe.moe_ep_local(p, hn, cfg, mesh, ba)[0]
-    # Experts whole on every rank, or sharded on their hidden dim ("ff"):
-    # the routed and the shared outputs are partial sums where their
-    # weights are sharded. The dispatch sees the whole batch, as the
-    # reference's (its capacity and drops are the batch's).
-    bl, s, d = hn.shape
-    batch_axes = part.spec_axes(tok_spec[0])
-    if batch_axes:
-        hn = all_gather(hn, batch_axes, mesh, 0)
-    xf = hn.reshape(-1, d)
-    y, _ = moe._moe_core(p, xf, cfg, 0, cfg.padded_experts)
-    y = _row_parallel(y, _sharded(spec["wo"], 1), mesh).to(x.dtype)
-    if cfg.num_shared_experts:
-        y = y + _row_parallel(moe._shared(p, xf), _sharded(spec["shared_wo"], 0),
-                              mesh).to(x.dtype)
-    lo = axis_index(mesh, batch_axes) * bl
-    return y.reshape(-1, s, d)[lo:lo + bl]
-
-
 def _mamba(p, spec, x, cache, cspec, cfg: ArchConfig, mesh):
-    full_p = {k: gather(v, _model_only(spec[k]), mesh) for k, v in p.items()}
-    full_c = {k: gather(v, _model_only(cspec[k]), mesh) for k, v in cache.items()}
+    full_p = sh.mamba_whole(p, spec, mesh)
+    full_c = {k: gather(v, sh.model_only(cspec[k]), mesh) for k, v in cache.items()}
     dh, new = ssm.decode_mamba(full_p, x, full_c, cfg)
     sizes, coord = part.axis_sizes(mesh), part.coordinate(mesh)
     for k, t in new.items():
-        cache[k].copy_(t[part.shard_slices(t.shape, _model_only(cspec[k]), sizes, coord)])
+        cache[k].copy_(t[part.shard_slices(t.shape, sh.model_only(cspec[k]), sizes, coord)])
     return dh
-
-
-def _model_only(spec: P) -> P:
-    """``spec`` with only its ``model`` entries (the batch stays local)."""
-    return P(*["model" if "model" in part.spec_axes(e) else None for e in spec])
 
 
 def _attention(p, spec, x, cache, cspec, pos, s_max, cfg: ArchConfig, mesh, window,
                use_kernel):
     bl = x.shape[0]
-    heads_local = _sharded(cspec["k"], 2)          # (B, S, KV, hd) per period
+    heads_local = sh.sharded(cspec["k"], 2)          # (B, S, KV, hd) per period
     seq_axes = part.spec_axes(cspec["k"][1])
-    r = axis_index(mesh, "model")
 
-    if heads_local:
+    if heads_local and not seq_axes:
         # The cache's KV heads divide the model axis, so do the query heads
         # and the projections' columns: a rank's columns are its heads.
-        if not (all(_sharded(spec[w], 1) for w in ("wq", "wk", "wv"))
-                and _sharded(spec["wo"], 0)):
+        if not (all(sh.sharded(spec[w], 1) for w in ("wq", "wk", "wv"))
+                and sh.sharded(spec["wo"], 0)):
             raise ValueError("a head-sharded cache needs wq/wk/wv/wo sharded over model")
+        out, _ = attention.decode_attention(p, x, cache, pos, cfg, window=window,
+                                            use_kernel=use_kernel)
+        return leave(out, "model", mesh)
+    if heads_local:
         q, k_new, v_new = attention._project_qkv(p, x, cfg)
     else:
         # One token's projections, whole on every rank.
         q, k_new, v_new = attention._project_qkv(
-            p, x, cfg, lambda t, w: all_gather(t, "model", mesh, -1) if _sharded(spec[w], 1)
-            else t)
+            p, x, cfg, lambda t, w: all_gather(t, "model", mesh, -1)
+            if sh.sharded(spec[w], 1) else t)
     q, k_new = attention.rotate_at(q, k_new, pos, cfg)
 
     k_cache, v_cache = cache["k"], cache["v"]
@@ -264,9 +170,9 @@ def _attention(p, spec, x, cache, cspec, pos, s_max, cfg: ArchConfig, mesh, wind
     out = out.to(x.dtype)
 
     if heads_local:
-        return _row_parallel(layers.matmul(out, p["wo"]), True, mesh)
-    if _sharded(spec["wo"], 0):
+        return leave(layers.matmul(out, p["wo"]), "model", mesh)
+    if sh.sharded(spec["wo"], 0):
         rows = p["wo"].shape[0]
-        return _row_parallel(layers.matmul(out[..., r * rows:(r + 1) * rows], p["wo"]),
-                             True, mesh)
+        r = axis_index(mesh, "model")
+        return leave(layers.matmul(out[..., r * rows:(r + 1) * rows], p["wo"]), "model", mesh)
     return layers.matmul(out, p["wo"])

@@ -5,7 +5,8 @@ Even micro-batching: for each slot of the batch, the micro-batch loss and
 its gradients (``torch.autograd.grad``, so that no bfloat16 ``.grad`` field
 rounds the sum), summed into float32 buffers in slot order, divided by the
 slot count, then one AdamW update. The reference's ``lax.scan`` over slots
-is a Python loop here.
+is a Python loop here. Under an ambient mesh the step runs per rank on
+local shards (:mod:`repro_torch.train.sharded_step`).
 
 ``make_adaptive_train_step`` is the FALCON S2 variant on a DeviceMesh:
 each DP group runs its *own* micro-batch allocation ``counts[g]`` (the
@@ -28,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_lib
 from repro_torch.optim import adamw
+from repro_torch.sharding import ambient_mesh
 
 
 def _microbatch_loss(params, mb, cfg: ArchConfig, use_kernel: bool):
@@ -46,9 +48,20 @@ def make_train_step(
     Parameters that do not require grad are switched to require it.
 
     ``use_kernel`` takes the CUDA SSD scan, which has no gradient: it raises
-    here as the reference's kernel does under ``jax.grad``."""
+    here as the reference's kernel does under ``jax.grad``.
+
+    Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) the step
+    runs per rank on DTensor shards (:mod:`repro_torch.train.sharded_step`,
+    plain routes only)."""
 
     def train_step(params, opt_state, batch):
+        mesh = ambient_mesh()
+        if mesh is not None:
+            from repro_torch.train import sharded_step
+
+            if use_kernel:
+                raise ValueError("the sharded train step runs the plain routes only")
+            return sharded_step.train_step(params, opt_state, batch, cfg, opt_cfg, mesh)
         slots = batch[sorted(batch)[0]].shape[0]
         paths, flat = zip(*adamw.leaves(params))
         for p in flat:
@@ -59,10 +72,13 @@ def make_train_step(
         for i in range(slots):
             mb = _take_slot(batch, i, cfg)
             loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
-            grads = torch.autograd.grad(loss, flat)
+            # A vision model's token table takes no part (its inputs are
+            # embeds): no gradient, as jax.grad's zeros.
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
             with torch.no_grad():
                 for acc, g in zip(gsum, grads):
-                    acc.add_(g)
+                    if g is not None:
+                        acc.add_(g)
             del grads
             lsum = lsum + loss.detach()
         with torch.no_grad():
@@ -117,10 +133,13 @@ def make_adaptive_train_step(
         for i in range(m):
             mb = _take_slot(local, i, cfg)
             loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
-            grads = torch.autograd.grad(loss, flat)
+            # A vision model's token table takes no part (its inputs are
+            # embeds): no gradient, as jax.grad's zeros.
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
             with torch.no_grad():
                 for acc, g in zip(gsum, grads):
-                    acc.add_(g)
+                    if g is not None:
+                        acc.add_(g)
             del grads
             lsum = lsum + loss.detach()
         # Weighted gradient aggregation (paper §5.3): each group contributes

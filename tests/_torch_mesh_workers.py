@@ -288,9 +288,118 @@ def distribute_matches_dtensor(rank, world, specs):
     return {"same": np.array(same)}
 
 
-def all_checks(rank, world, inputs_path, decode, moe_list, counts, opt_kw, perm, specs):
+def _specs(cfg, mesh, fsdp_min_dim):
+    from repro_torch.sharding import partition as part
+
+    if fsdp_min_dim is None:
+        return part.param_specs(cfg, mesh)
+    return part.fsdp_param_specs(cfg, mesh, min_dim=fsdp_min_dim)
+
+
+def _case_cfg(arch, dtype, overrides):
+    from dataclasses import replace
+
+    from repro_torch.configs.base import get_config
+
+    return replace(get_config(arch).smoke(), dtype=dtype, **overrides)
+
+
+def _batch(z, prefix, dt):
+    """The batch arrays under ``prefix/`` as tensors (embeds in ``dt``)."""
+    import torch
+
+    return {k: torch.as_tensor(v).to(dt) if k == "embeds" else torch.as_tensor(v)
+            for k, v in _tree_from_npz(z, prefix).items()}
+
+
+def prefill_cases(rank, world, inputs_path, cases):
+    """Each case: (name, arch, mesh shape, dtype, config overrides, FSDP
+    min_dim or None, seq_shard, grow, batch); the sharded prefill of the
+    first ``batch`` prompts under ``set_mesh``, the logits and caches
+    gathered whole; with ``grow``, the caches grown by ``grow`` positions
+    and one decode step from the prompt's end."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+    from repro_torch.serve.sharded_prefill import grow_caches
+    from repro_torch.sharding import set_mesh
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding.manual import gather
+
+    z = np.load(inputs_path)
+    out = {}
+    for name, arch, shape, dtype, overrides, fsdp_min_dim, seq_shard, grow, b in cases:
+        cfg = _case_cfg(arch, dtype, overrides)
+        dt = getattr(torch, dtype)
+        mesh = _mesh(shape)
+        params = _cast(params_from_numpy(_tree_from_npz(z, f"{arch}/params"), device="cpu"), dt)
+        p_d = part.distribute(params, _specs(cfg, mesh, fsdp_min_dim), mesh)
+        batch = {k: v[:, :b] if k == "positions" else v[:b]
+                 for k, v in _batch(z, f"{arch}/prompt", dt).items()}
+        s = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+        with set_mesh(mesh):
+            logits, caches = make_prefill_step(cfg, s, seq_shard=seq_shard)(p_d, batch)
+            out[f"{name}/logits"] = _f32(gather(logits.to_local(), part.spec_of(logits), mesh))
+            for k, c in caches.items():
+                for n, t in c.items():
+                    out[f"{name}/caches/{k}/{n}"] = _f32(gather(t.to_local(), part.spec_of(t),
+                                                                mesh))
+            if grow:
+                caches = grow_caches(caches, cfg, s + grow, mesh)
+                tok = torch.as_tensor(z[f"{arch}/next"][:b])
+                with torch.no_grad():
+                    lg, _ = make_decode_step(cfg, s + grow)(p_d, tok, caches, s)
+                out[f"{name}/next_logits"] = _f32(gather(lg.to_local(), part.spec_of(lg), mesh))
+    return out
+
+
+def train_cases(rank, world, inputs_path, cases, opt_kw):
+    """Each case: (name, arch, mesh shape, dtype, config overrides, FSDP
+    min_dim or None); one sharded even train step under ``set_mesh`` on
+    DTensor parameters and moments (ZeRO-1), the parameters gathered whole
+    and the loss."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import param_shapes
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import P, set_mesh
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding.manual import gather
+    from repro_torch.train.train_step import make_train_step
+
+    z = np.load(inputs_path)
+    out = {}
+    for name, arch, shape, dtype, overrides, fsdp_min_dim in cases:
+        cfg = _case_cfg(arch, dtype, overrides)
+        dt = getattr(torch, dtype)
+        mesh = _mesh(shape)
+        params = _cast(params_from_numpy(_tree_from_npz(z, f"{arch}/params"), device="cpu"), dt)
+        specs = _specs(cfg, mesh, fsdp_min_dim)
+        opt = adamw.init(params)
+        ospecs = adamw.opt_state_specs(specs, param_shapes(cfg), mesh)
+        o_d = adamw.AdamWState(step=part.distribute(opt.step, P(), mesh),
+                               mu=part.distribute(opt.mu, ospecs.mu, mesh),
+                               nu=part.distribute(opt.nu, ospecs.nu, mesh))
+        p_d = part.distribute(params, specs, mesh)
+        batch = _batch(z, f"{arch}/train", dt)
+        with set_mesh(mesh):
+            p_d, o_d, metrics = make_train_step(cfg, adamw.AdamWConfig(**opt_kw))(p_d, o_d,
+                                                                                 batch)
+        for path, t in adamw.leaves(p_d):
+            out[f"{name}/params/{path}"] = _f32(gather(t.to_local(), part.spec_of(t), mesh))
+        out[f"{name}/loss"] = _f32(metrics["loss"])
+        out[f"{name}/step"] = np.asarray(int(o_d.step.to_local()))
+    return out
+
+
+def all_checks(rank, world, inputs_path, decode, moe_list, counts, opt_kw, perm, specs,
+               prefill=(), train=()):
     """Every program above in one process group (one spawn per test file)."""
-    out = decode_cases(rank, world, inputs_path, decode)
+    out = prefill_cases(rank, world, inputs_path, prefill)
+    out.update(train_cases(rank, world, inputs_path, train, opt_kw))
+    out.update(decode_cases(rank, world, inputs_path, decode))
     out.update(moe_cases(rank, world, inputs_path, moe_list))
     out.update({f"adaptive/{k}": v for k, v in
                 adaptive_step(rank, world, inputs_path, counts, opt_kw).items()})

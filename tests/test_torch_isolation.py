@@ -4,8 +4,9 @@ smoke-size training step, scoring one campaign and writing its
 observability sidecars, and replaying one what-if variant load neither jax
 nor the JAX package (checked in a fresh interpreter); nor do the sharding
 layer, the mesh builders and the four example twins, in a fresh parent and
-in each rank of a 2-rank gloo adaptive step; and the default entry points
-want the card."""
+in each rank of a 2-rank gloo adaptive step; nor does the dry-run twin,
+imported and run on its CPU route; and the default entry points want the
+card."""
 import os
 import subprocess
 import sys
@@ -125,6 +126,39 @@ def test_mesh_layer_and_twins_load_neither_jax_nor_reference_package(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("LOADED:")]
     assert line == ["LOADED:[[], [], []]"], out.stdout
+
+
+_DRYRUN_PROGRAM = textwrap.dedent("""
+    import os, sys
+    import torch.distributed as dist
+    env = dict(os.environ)
+    from repro_torch.launch import dryrun
+    from repro_torch.serve import sharded_prefill  # noqa: F401
+    from repro_torch.train import sharded_step  # noqa: F401
+    assert dict(os.environ) == env, "importing the dry-run changed the environment"
+    assert not dist.is_initialized(), "importing the dry-run started a process group"
+    rec = dryrun.dryrun("falcon-demo-100m", "long_500k", False, "cpu")
+    assert rec["bytes_per_device"]["argument"] > 0, rec
+    assert not dist.is_initialized(), "the dry-run left its process group behind"
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith("jax.")
+                 or m == "repro" or m.startswith("repro."))
+    print("LOADED:" + ",".join(bad))
+""")
+
+
+def test_dryrun_loads_neither_jax_nor_reference_package():
+    """Importing and running the dry-run twin (its CPU route) loads neither
+    jax nor the JAX package, sets no environment variable (the reference's
+    import sets XLA_FLAGS) and starts no process group at import."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_PROGRAM], capture_output=True, text=True,
+        env=env, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("LOADED:")]
+    assert line == ["LOADED:"], out.stdout
 
 
 def test_auto_backends_raise_without_a_card():

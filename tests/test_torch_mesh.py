@@ -33,6 +33,24 @@ parameters, carried over as float32).
 * ``remap_mesh``: each rank's new coordinate is where JAX's ``remap_mesh``
   puts its device. ``distribute``'s shards equal JAX's
   ``devices_indices_map`` and DTensor's ``distribute_tensor``.
+* The sharded prefill (``make_prefill_step`` under ``set_mesh``): logits
+  and every cache leaf against JAX's unsharded ``make_prefill_step`` on
+  granite-3-8b (heads; at batch 1 the prompt's sequence split over
+  ``data``, gathered), granite-20b (kv 1: caches out with the sequence
+  sharded over ``model``, grown, and one sharded decode step continuing
+  from them), olmoe (expert-parallel over (1, 4)), jamba (placed by
+  ``fsdp_param_specs`` at ``min_dim`` 64, so weights shard over ``data``;
+  capacity factor 8 so that the per-shard capacity drops nothing), musicgen
+  (codebooks) and qwen2-vl (embeds and M-RoPE).
+* The sharded even train step (``make_train_step`` under ``set_mesh``, DTensor
+  parameters and ZeRO-1 moments): the loss and every parameter after one
+  step against JAX's unsharded ``make_train_step`` on the same six configs
+  (jamba's MoE sharded on its hidden dim: the expert-parallel aux loss is
+  the mean of the data shards', the reference's under a mesh, not the
+  unsharded step's), AdamW ``eps`` 1 as above. Tolerances as for the
+  decode: 1e-4 in float32, 2e-2 in bfloat16, 1e-5 against the port's own
+  unsharded steps (relative; absolute 1e-5 for the prefill, 1e-7 for the
+  parameters).
 """
 import json
 import os
@@ -68,6 +86,10 @@ OPT = dict(lr=1e-2, eps=1.0, warmup_steps=0)
 PERM = [2, 0, 3, 1]
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SELF_TOL = dict(rtol=1e-5, atol=1e-6)
+#: the sharded prefill against the port's unsharded one: its Mamba2 blocks
+#: also sum the out-projection and the out-norm's mean square over ranks
+#: (jamba smoke: 14 of them), ~1e-6 in logits of ~1e-2
+PREFILL_SELF_TOL = dict(rtol=1e-5, atol=1e-5)
 #: (name, arch, mesh, batch, seq_shard, use_kernel, dtype, config overrides)
 DECODE = [
     ("g8-2x2", "granite-3-8b", (2, 2), B, True, False, "float32", {}),
@@ -88,7 +110,34 @@ DECODE = [
     ("jamba-1x4", "jamba-1.5-large-398b", (1, 4), B, True, False, "float32", {}),
     ("musicgen-2x2", "musicgen-large", (2, 2), B, True, False, "float32", {}),
 ]
-ARCHS = sorted({c[1] for c in DECODE})
+S_PROMPT, GROW = 16, 8
+#: (name, arch, mesh, dtype, config overrides, FSDP min_dim or None,
+#: seq_shard, positions to grow the caches by and decode one step (0: none),
+#: batch: at 1 the prompt's sequence is split over data and gathered)
+PREFILL = [
+    ("pf-g8-2x2", "granite-3-8b", (2, 2), "float32", {}, None, True, 0, B),
+    ("pf-g8-2x2-bf16", "granite-3-8b", (2, 2), "bfloat16", {}, None, True, 0, B),
+    ("pf-g20-2x2", "granite-20b", (2, 2), "float32", {}, None, True, GROW, B),
+    ("pf-g8-2x2-b1", "granite-3-8b", (2, 2), "float32", {}, None, True, GROW, 1),
+    ("pf-g20-2x2-no-seq-shard", "granite-20b", (2, 2), "float32", {}, None, False, GROW, B),
+    ("pf-olmoe-1x4", "olmoe-1b-7b", (1, 4), "float32", {}, None, True, 0, B),
+    ("pf-jamba-fsdp-2x2", "jamba-1.5-large-398b", (2, 2), "float32", {"capacity_factor": 8.0},
+     64, True, GROW, B),
+    ("pf-musicgen-2x2", "musicgen-large", (2, 2), "float32", {}, None, True, 0, B),
+    ("pf-qwen2vl-2x2", "qwen2-vl-72b", (2, 2), "float32", {}, None, True, 0, B),
+]
+#: (name, arch, mesh, dtype, config overrides, FSDP min_dim or None)
+TRAIN = [
+    ("tr-g8-2x2", "granite-3-8b", (2, 2), "float32", {}, None),
+    ("tr-g8-2x2-bf16", "granite-3-8b", (2, 2), "bfloat16", {}, None),
+    ("tr-g20-2x2", "granite-20b", (2, 2), "float32", {}, None),
+    ("tr-olmoe-1x4", "olmoe-1b-7b", (1, 4), "float32", {}, None),
+    ("tr-jamba-fsdp-2x2", "jamba-1.5-large-398b", (2, 2), "float32", {"moe_shard": "ff"}, 64),
+    ("tr-musicgen-2x2", "musicgen-large", (2, 2), "float32", {}, None),
+    ("tr-qwen2vl-2x2", "qwen2-vl-72b", (2, 2), "float32", {}, None),
+]
+TRAIN_DATA = dict(seq_len=16, global_batch=8, slots=2, dp_groups=2)
+ARCHS = sorted({c[1] for c in DECODE} | {c[1] for c in PREFILL} | {c[1] for c in TRAIN})
 #: (name, capacity_factor (None = the config's), batch, seq, DTensor inputs)
 MOE = [
     ("cf8", 8.0, 4, 16, False),
@@ -177,7 +226,7 @@ JAX_SCRIPT = textwrap.dedent(r"""
 
 
 def f32(x):
-    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+    return np.asarray(x.detach().float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
 def flat_np(tree, prefix):
@@ -198,6 +247,22 @@ def make_inputs(path):
         arrays[f"{arch}/tokens"] = rng.integers(0, cfg.vocab_size, (len(POSITIONS), B, 1, *extra))
         arrays[f"{arch}/positions"] = np.asarray(POSITIONS)
         arrays[f"{arch}/seq_len"] = np.asarray(S)
+    from repro.data.pipeline import DataConfig, make_batch
+
+    for arch in sorted({c[1] for c in PREFILL} | {c[1] for c in TRAIN}):
+        cfg = jconfigs.get_config(arch).smoke()
+        if cfg.modality == "vision_embeds":
+            arrays[f"{arch}/prompt/embeds"] = rng.normal(
+                size=(B, S_PROMPT, cfg.d_model)).astype(np.float32)
+            arrays[f"{arch}/prompt/positions"] = rng.integers(0, S_PROMPT, (3, B, S_PROMPT))
+            arrays[f"{arch}/next"] = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
+        else:
+            extra = (cfg.num_codebooks,) if cfg.modality == "audio_codes" else ()
+            arrays[f"{arch}/prompt/tokens"] = rng.integers(0, cfg.vocab_size,
+                                                           (B, S_PROMPT, *extra))
+            arrays[f"{arch}/next"] = rng.integers(0, cfg.vocab_size, (B, 1, *extra))
+        for k, v in make_batch(cfg, DataConfig(**TRAIN_DATA), 0).items():
+            arrays[f"{arch}/train/{k}"] = v
     cfg = jconfigs.get_config("olmoe-1b-7b").smoke()
     arrays.update(flat_np(init_tree(jmoe.moe_schema(cfg), jax.random.key(0)), "moe/params"))
     arrays["moe/x"] = rng.normal(size=(4, 16, cfg.d_model)).astype(np.float32)
@@ -246,6 +311,76 @@ def _tree(z, prefix):
     return workers._tree_from_npz(z, prefix)
 
 
+def _jax_batch(z, prefix, dt):
+    return {k: jnp.asarray(v, dt) if k == "embeds" else jnp.asarray(v)
+            for k, v in _tree(z, prefix).items()}
+
+
+def _flat_caches(caches, cast):
+    return {f"caches/{k}/{n}": cast(t) for k, c in caches.items() for n, t in c.items()}
+
+
+def _prompt(tree, b):
+    return {k: v[:, :b] if k == "positions" else v[:b] for k, v in tree.items()}
+
+
+def prefill_with_jax(z, arch, dtype, overrides, grow, b):
+    from repro.serve.serve_step import make_prefill_step
+
+    cfg = replace(jconfigs.get_config(arch).smoke(), dtype=dtype, **overrides)
+    dt = cfg.activation_dtype
+    params = jax.tree.map(lambda a: jnp.asarray(a, dt), _tree(z, f"{arch}/params"))
+    logits, caches = jax.jit(make_prefill_step(cfg, S_PROMPT))(
+        params, _prompt(_jax_batch(z, f"{arch}/prompt", dt), b))
+    out = {"logits": np.asarray(logits, np.float32),
+           **_flat_caches(caches, lambda t: np.asarray(t, np.float32))}
+    if grow:
+        caches = jtransformer.grow_caches(caches, cfg, S_PROMPT + grow)
+        tok = jnp.asarray(z[f"{arch}/next"][:b], dt if cfg.modality == "vision_embeds" else None)
+        lg, _ = jax.jit(jmake_decode_step(cfg, S_PROMPT + grow))(
+            params, tok, caches, jnp.asarray(S_PROMPT, jnp.int32))
+        out["next_logits"] = np.asarray(lg, np.float32)
+    return out
+
+
+def prefill_with_port(z, arch, overrides, b):
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    cfg = replace(tconfigs.get_config(arch).smoke(), dtype="float32", **overrides)
+    params = params_from_numpy(_tree(z, f"{arch}/params"), "cpu")
+    with torch.no_grad():
+        logits, caches = make_prefill_step(cfg, S_PROMPT)(
+            params, _prompt(workers._batch(z, f"{arch}/prompt", torch.float32), b))
+    return {"logits": f32(logits), **_flat_caches(caches, f32)}
+
+
+def train_with_jax(z, arch, dtype, overrides):
+    from repro.optim import adamw as jadamw
+    from repro.train.train_step import make_train_step
+
+    cfg = replace(jconfigs.get_config(arch).smoke(), dtype=dtype, **overrides)
+    dt = cfg.activation_dtype
+    params = jax.tree.map(lambda a: jnp.asarray(a, dt), _tree(z, f"{arch}/params"))
+    step = jax.jit(make_train_step(cfg, jadamw.AdamWConfig(**OPT)))
+    p2, _, m = step(params, jadamw.init(params), _jax_batch(z, f"{arch}/train", dt))
+    out = flat_np(p2, "params")
+    out["loss"] = np.asarray(m["loss"], np.float32)
+    return out
+
+
+def train_with_port(z, arch, overrides):
+    from repro_torch.optim import adamw as tadamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = replace(tconfigs.get_config(arch).smoke(), dtype="float32", **overrides)
+    params = params_from_numpy(_tree(z, f"{arch}/params"), "cpu")
+    p2, _, m = make_train_step(cfg, tadamw.AdamWConfig(**OPT))(
+        params, tadamw.init(params), workers._batch(z, f"{arch}/train", torch.float32))
+    out = {f"params/{k}": f32(v) for k, v in tadamw.leaves(p2)}
+    out["loss"] = f32(m["loss"])
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh")
@@ -260,7 +395,7 @@ def runs(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         ranks = workers.spawn(workers.all_checks, 4, str(tmp / "ranks"), inputs, DECODE,
-                              MOE, COUNTS, OPT, PERM, SPECS, timeout=240)
+                              MOE, COUNTS, OPT, PERM, SPECS, PREFILL, TRAIN, timeout=300)
         jax_ref, by_key = {}, {}
         for name, arch, _, b, _, _, dtype, over in DECODE:   # one JAX run per model and batch
             key = (arch, b, dtype, tuple(sorted(over.items())))
@@ -269,6 +404,13 @@ def runs(tmp_path_factory):
             jax_ref[name] = by_key[key]
         port_ref = {name: decode_with_port(z, arch, b, kern, over)
                     for name, arch, _, b, _, kern, dtype, over in DECODE if dtype == "float32"}
+        jax_prefill = {c[0]: prefill_with_jax(z, c[1], c[3], c[4], c[7], c[8])
+                       for c in PREFILL}
+        port_prefill = {c[0]: prefill_with_port(z, c[1], c[4], c[8]) for c in PREFILL
+                        if c[3] == "float32"}
+        jax_train = {c[0]: train_with_jax(z, c[1], c[3], c[4]) for c in TRAIN}
+        port_train = {c[0]: train_with_port(z, c[1], c[4]) for c in TRAIN
+                      if c[3] == "float32"}
         stdout, stderr = jax_proc.communicate(timeout=240)
     finally:
         if jax_proc.poll() is None:
@@ -276,7 +418,9 @@ def runs(tmp_path_factory):
             jax_proc.communicate()
     assert jax_proc.returncode == 0 and "JAX-MESH-OK" in stdout, stderr[-3000:]
     return {"ranks": ranks, "jax_decode": jax_ref, "port_decode": port_ref,
-            "jax": dict(np.load(tmp / "jax.npz")), "inputs": z}
+            "jax": dict(np.load(tmp / "jax.npz")), "inputs": z,
+            "jax_prefill": jax_prefill, "port_prefill": port_prefill,
+            "jax_train": jax_train, "port_train": port_train}
 
 
 @pytest.mark.parametrize("case", DECODE, ids=[c[0] for c in DECODE])
@@ -427,3 +571,80 @@ def test_shards_match_jax_index_map_and_dtensor(runs):
 def test_no_rank_loads_jax_or_the_reference(runs):
     for res in runs["ranks"]:
         assert res["modules"].size == 0, res["modules"][:5]
+
+
+@pytest.mark.parametrize("case", PREFILL, ids=[c[0] for c in PREFILL])
+def test_sharded_prefill_matches_jax(runs, case):
+    name, dtype = case[0], case[3]
+    got, want = runs["ranks"][0], runs["jax_prefill"][name]
+    assert set(want) <= {k.removeprefix(name + "/") for k in got}
+    for key, value in want.items():
+        np.testing.assert_allclose(got[f"{name}/{key}"], value, **TOL[dtype], err_msg=key)
+    for other in runs["ranks"][1:]:
+        np.testing.assert_array_equal(other[f"{name}/logits"], got[f"{name}/logits"])
+
+
+@pytest.mark.parametrize("case", [c for c in PREFILL if c[3] == "float32"],
+                         ids=[c[0] for c in PREFILL if c[3] == "float32"])
+def test_sharded_prefill_matches_unsharded_port(runs, case):
+    name = case[0]
+    got = runs["ranks"][0]
+    for key, value in runs["port_prefill"][name].items():
+        np.testing.assert_allclose(got[f"{name}/{key}"], value, **PREFILL_SELF_TOL,
+                                   err_msg=key)
+
+
+def test_prefill_cases_engage_their_layouts():
+    """granite-20b's prefill caches come out with the sequence split over
+    model (kv 1) or, without seq_shard, replicated over it; jamba's
+    parameters at min_dim 64 split weights over data."""
+    from torch.distributed.device_mesh import DeviceMesh
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), world_size=4, rank=0)
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+        g20 = tconfigs.get_config("granite-20b").smoke()
+        assert tpart.cache_specs(g20, mesh, B)["sub0"]["k"][2] == "model"
+        assert tpart.cache_specs(g20, mesh, B, seq_shard=False)["sub0"]["k"][2] is None
+        jamba = tconfigs.get_config("jamba-1.5-large-398b").smoke()
+        specs = [s for _, s in _flat_specs(tpart.fsdp_param_specs(jamba, mesh, min_dim=64))]
+        assert any("data" in tpart.spec_axes(e) for s in specs for e in s)
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat_specs(tree, prefix=""):
+    if isinstance(tree, P):
+        return [(prefix, tree)]
+    return [x for k, v in tree.items() for x in _flat_specs(v, f"{prefix}/{k}")]
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=[c[0] for c in TRAIN])
+def test_sharded_train_step_matches_jax(runs, case):
+    name, dtype = case[0], case[3]
+    got, want = runs["ranks"], runs["jax_train"][name]
+    keys = [k for k in want if k.startswith("params/")]
+    assert keys and len(keys) == sum(k.startswith(f"{name}/params/") for k in got[0])
+    for rank in got:
+        np.testing.assert_allclose(rank[f"{name}/loss"], want["loss"], **TOL[dtype])
+        assert int(rank[f"{name}/step"]) == 1
+        for k in keys:
+            np.testing.assert_allclose(rank[f"{name}/{k}"], want[k], **TOL[dtype], err_msg=k)
+
+
+@pytest.mark.parametrize("case", [c for c in TRAIN if c[3] == "float32"],
+                         ids=[c[0] for c in TRAIN if c[3] == "float32"])
+def test_sharded_train_step_matches_unsharded_port(runs, case):
+    name = case[0]
+    got, want = runs["ranks"][0], runs["port_train"][name]
+    z = runs["inputs"]
+    moved = 0
+    for key, value in want.items():
+        np.testing.assert_allclose(got[f"{name}/{key}"], value, rtol=1e-5, atol=1e-7,
+                                   err_msg=key)
+        if key.startswith("params/"):
+            start = z[f"{case[1]}/{key}"]
+            moved += not np.array_equal(got[f"{name}/{key}"], start)
+    assert moved > 0
