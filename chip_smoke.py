@@ -159,7 +159,8 @@ order:
     functions, its peak within the card's memory and its operations at least
     DRYRUN_FLOPS_SHARE of the model's per device; beside each peak the
     ``--device cpu`` route's MemTracker estimate, run at the lowest priority
-    beside phases 1-18 (stopped at DRYRUN_CPU_DEADLINE if not done).
+    beside the card child only, so that no phase timed on the host's clock
+    shares the host with it (stopped at DRYRUN_CPU_DEADLINE if not done).
 
 Any failure exits non-zero. The last two lines are a JSON object with one
 entry per kernel (``bocd_step``'s also carries ``campaign_launches`` and
@@ -3188,8 +3189,8 @@ DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 #: benchmarks/roofline.py counts them): the matrix products of the model
 DRYRUN_FLOPS_SHARE = 0.9
 #: seconds after the script's start by which the CPU (FakeTensorMode)
-#: estimates must be done; the ones still running then are stopped and
-#: logged as not finished
+#: estimates, started with phase 19, must be done; the ones still running
+#: then are stopped and logged as not finished
 DRYRUN_CPU_DEADLINE = 840
 
 
@@ -3219,14 +3220,15 @@ def _dryrun_child(combos, out_path):
 def start_dryrun_estimates():
     """The CPU route (``--device cpu``: FakeTensorMode, MemTracker's peak)
     of each phase-19 combination, one process each at the lowest priority
-    and on the upper half of the host's cores, beside phases 1-18: they use
-    the host, not the card, and the longest (a train step at 0.2-0.5 ms of
-    host time per eager operation) takes minutes."""
+    and on every host core but the first, beside phase 19's card child
+    only: they use the host and that child the card, and no phase timed on
+    the host's clock runs beside them. The longest (a train step at 0.2-0.5
+    ms of host time per eager operation) takes minutes."""
     import os
     import shutil
 
     cores = sorted(os.sched_getaffinity(0))
-    theirs = set(cores[len(cores) // 2:]) or set(cores)
+    theirs = set(cores[1:]) or set(cores)
 
     def lowly():
         os.nice(19)
@@ -3293,34 +3295,41 @@ def _expected_argument_bytes(arch, shape, multi_pod):
             + total(inputs["caches"], part.cache_specs(cfg, mesh, gb)))
 
 
-def phase_dryrun(torch, card, estimates, t_start):
+def phase_dryrun(torch, card, t_start):
     """The dry-run of DRYRUN_COMBOS on the card in a child process: each
     record's argument bytes equal to the shard-shape sum worked out here,
     its peak within the card's memory, its operations at least
     DRYRUN_FLOPS_SHARE of the model's per device; the CPU route's
-    MemTracker estimate (started beside phases 1-18) logged beside each
+    MemTracker estimate (run beside the card child) logged beside each
     measured peak. Returns the records."""
     from repro_torch.configs.base import INPUT_SHAPES, get_config
 
     out_path = DRYRUN_DIR / "card.json"
-    t0 = time.perf_counter()
-    codes = _run_procs(_dryrun_child, [(DRYRUN_COMBOS, str(out_path))], 600, "the dry-run")
-    need(codes == [0] and out_path.exists(), f"the dry-run child exited with {codes}")
-    secs = time.perf_counter() - t0
-    records = json.loads(out_path.read_text())
-    failed = [r for r in records if not r["ok"]]
-    need(not failed, "dry-run combinations failed on the card: "
-         + "; ".join(f"{r['arch']} {r['shape']}: {r['error']}" for r in failed)
-         + (f"\n{failed[0]['trace']}" if failed else ""))
-    # The CPU estimates: wait for them until the deadline, then stop the rest.
-    deadline = t_start + DRYRUN_CPU_DEADLINE
-    for log_file, proc in estimates:
-        try:
-            proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        log_file.close()
+    estimates = start_dryrun_estimates()
+    try:
+        t0 = time.perf_counter()
+        codes = _run_procs(_dryrun_child, [(DRYRUN_COMBOS, str(out_path))], 600,
+                           "the dry-run")
+        need(codes == [0] and out_path.exists(), f"the dry-run child exited with {codes}")
+        secs = time.perf_counter() - t0
+        records = json.loads(out_path.read_text())
+        failed = [r for r in records if not r["ok"]]
+        need(not failed, "dry-run combinations failed on the card: "
+             + "; ".join(f"{r['arch']} {r['shape']}: {r['error']}" for r in failed)
+             + (f"\n{failed[0]['trace']}" if failed else ""))
+        # The CPU estimates: wait for them until the deadline.
+        deadline = t_start + DRYRUN_CPU_DEADLINE
+        for _, proc in estimates:
+            try:
+                proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for log_file, proc in estimates:     # the rest are stopped
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_file.close()
     cap = torch.cuda.get_device_properties(0).total_memory
     log(f"[19 dryrun] {len(records)} combinations on the card in {secs:.1f} s (one child "
         f"process, rank 0 of a fake process group); card: {card}")
@@ -3372,10 +3381,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    estimates = []
     try:
         card = phase_env(torch)
-        estimates = start_dryrun_estimates()
         phase_build()
         errs = phase_kernels(torch, np)
         errs.update(phase_attention_kernels(torch))
@@ -3404,7 +3411,7 @@ def main() -> int:
         gc.collect()            # the twins' trainers hold reference cycles
         torch.cuda.empty_cache()
         mesh = phase_mesh(torch, np, card)
-        phase_dryrun(torch, card, estimates, t_start)
+        phase_dryrun(torch, card, t_start)
         for row in rows:
             if row["name"] == "flash_decode":
                 row["olmoe_launches"] = olmoe_serve["flash_decode"]
@@ -3418,12 +3425,6 @@ def main() -> int:
     except SmokeError as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
-    finally:
-        for log_file, proc in estimates:      # stopped here if a phase failed first
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log_file.close()
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

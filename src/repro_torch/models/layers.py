@@ -113,10 +113,13 @@ def embed_schema(cfg: ArchConfig) -> Schema:
     return {"tok": ParamDef((v, d), ("model", None))}
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor, row0: int = 0) -> torch.Tensor:
-    """Rows of ``table`` for token ids, where ``table`` holds the vocab rows
-    ``row0 .. row0 + len(table)``; ids outside them give zero rows (a
-    rank's part of a vocab-sharded lookup)."""
+def lookup(table: torch.Tensor, ids: torch.Tensor, row0: int | None = None) -> torch.Tensor:
+    """Rows of ``table`` for token ids. With ``row0`` the table holds the
+    vocab rows ``row0 .. row0 + len(table)`` only (a rank's part of a
+    vocab-sharded lookup) and ids outside them give zero rows; without it
+    the table is whole and indexed as it is."""
+    if row0 is None:
+        return table[ids]
     rows = table.shape[0]
     local = ids.long() - row0
     mine = (local >= 0) & (local < rows)
@@ -124,10 +127,10 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, row0: int = 0) -> torch.Tenso
 
 
 def apply_embed(
-    params: dict, tokens: torch.Tensor, cfg: ArchConfig, row0: int = 0
+    params: dict, tokens: torch.Tensor, cfg: ArchConfig, row0: int | None = None
 ) -> torch.Tensor:
-    """The embedding of ``tokens``; ``params["tok"]`` may hold the vocab
-    rows from ``row0`` only (see :func:`lookup`)."""
+    """The embedding of ``tokens``; with ``row0``, ``params["tok"]`` holds
+    the vocab rows from ``row0`` only (see :func:`lookup`)."""
     if cfg.modality == "audio_codes":
         # tokens: (B, S, K) -> sum of the K per-codebook embeddings
         # (MusicGen's delay-pattern interleave is the data stub's job).

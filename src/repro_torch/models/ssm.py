@@ -208,13 +208,12 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 def decode_mamba(
-    params: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig, out_norm=None
+    params: dict, x: torch.Tensor, cache: dict, cfg: ArchConfig
 ) -> tuple[torch.Tensor, dict]:
-    """One-token Mamba2 step over the heads of ``params``'s columns (see
-    :func:`mamba_forward`; the cache holds the same heads). x: (B, 1, D).
-    Returns (y, new cache); the cache passed in is not modified."""
+    """One-token Mamba2 step. x: (B, 1, D). Returns (y, new cache); the
+    cache passed in is not modified."""
     bsz = x.shape[0]
-    h, p = params["a_log"].shape[0], cfg.ssm_head_dim
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
     rep = h // g
     f32 = torch.float32
@@ -248,7 +247,7 @@ def decode_mamba(
     y = torch.einsum("bhn,bhpn->bhp", c_h.to(f32), state)
     y = y + params["d_skip"][:, None].to(f32) * xh.to(f32)
     y = y.reshape(bsz, 1, h * p).to(x.dtype)
-    y = (out_norm or layers.rmsnorm)(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    y = layers.rmsnorm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
     new_cache = {
         "state": state.to(cache["state"].dtype),
         "conv_x": xin_hist[:, 1:],

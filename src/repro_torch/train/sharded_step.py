@@ -43,7 +43,7 @@ from repro_torch.sharding import partition as part
 from repro_torch.sharding.manual import (
     all_gather, all_reduce, as_dtensor, is_dtensor, local_shard, split,
 )
-from repro_torch.train.train_step import _take_slot, _unflatten
+from repro_torch.train.train_step import _grads, _take_slot, _unflatten
 
 
 def train_step(params, opt_state: adamw.AdamWState, batch: dict, cfg: ArchConfig,
@@ -72,8 +72,7 @@ def train_step(params, opt_state: adamw.AdamWState, batch: dict, cfg: ArchConfig
     lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
     for i in range(slots):
         loss = loss_fn(p_loc, specs, _take_slot(local, i, cfg), cfg, mesh)
-        # A vision model's token table takes no part (its inputs are embeds).
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = _grads(loss, flat, paths, cfg)
         with torch.no_grad():
             for acc, g in zip(gsum, grads):
                 if g is not None:

@@ -72,9 +72,7 @@ def make_train_step(
         for i in range(slots):
             mb = _take_slot(batch, i, cfg)
             loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
-            # A vision model's token table takes no part (its inputs are
-            # embeds): no gradient, as jax.grad's zeros.
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = _grads(loss, flat, paths, cfg)
             with torch.no_grad():
                 for acc, g in zip(gsum, grads):
                     if g is not None:
@@ -133,9 +131,7 @@ def make_adaptive_train_step(
         for i in range(m):
             mb = _take_slot(local, i, cfg)
             loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
-            # A vision model's token table takes no part (its inputs are
-            # embeds): no gradient, as jax.grad's zeros.
-            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            grads = _grads(loss, flat, paths, cfg)
             with torch.no_grad():
                 for acc, g in zip(gsum, grads):
                     if g is not None:
@@ -154,6 +150,18 @@ def make_adaptive_train_step(
         return params, opt_state, {"loss": loss}
 
     return train_step
+
+
+def _grads(loss, flat, paths, cfg: ArchConfig) -> list:
+    """``loss``'s gradient for each leaf. A vision model's token table takes
+    no part (its inputs are embeds): its gradient is None, where jax.grad
+    gives zeros. Any other leaf that the loss does not reach raises."""
+    skip = "embed/tok" if cfg.modality == "vision_embeds" else None
+    used = [i for i, path in enumerate(paths) if path != skip]
+    grads = [None] * len(flat)
+    for i, g in zip(used, torch.autograd.grad(loss, [flat[i] for i in used])):
+        grads[i] = g
+    return grads
 
 
 def _unflatten(paths, values) -> dict:

@@ -23,7 +23,8 @@ fake process group of 512 ranks that a module fixture makes and destroys.
   ``results/``; a failing combination (an out-of-memory, as the card
   raises it) prints ``FAIL`` and makes the exit status 1; without a card
   the default route refuses to run.
-* The whole 80-combination sweep on the CPU route is ``slow``.
+* The whole 80-combination sweep on the CPU route, one case per arch, is
+  ``slow``.
 """
 import json
 import os
@@ -221,10 +222,10 @@ def _results_listing():
     return sorted(out)
 
 
-def _cli(args, cwd):
+def _cli(args, cwd, timeout=300):
     env = {**os.environ, "PYTHONPATH": SRC}
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
-                          cwd=cwd, env=env, capture_output=True, text=True, timeout=300)
+                          cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout)
 
 
 def test_cli_runs_an_explicit_falcon_demo_and_writes_only_to_out(tmp_path):
@@ -260,9 +261,16 @@ def test_cli_wants_the_card_by_default(tmp_path):
         assert proc.returncode != 0 and "--device cpu" in proc.stderr
 
 
+#: the archs of ``--all``; one full-width ``--multi-pod both`` sweep of one
+#: arch on the CPU route takes minutes to most of an hour on a CPU core
+SWEEP_ARCHS = sorted({a for a, _, _ in dryrun.combinations(None, None, True, "both")})
+SWEEP_TIMEOUT_S = 7200
+
+
 @pytest.mark.slow
-def test_every_combination_runs_on_the_cpu_route(tmp_path):
-    proc = _cli(["--all", "--multi-pod", "both", "--device", "cpu", "--out",
-                 str(tmp_path)], ROOT)
+@pytest.mark.parametrize("arch", SWEEP_ARCHS)
+def test_every_combination_runs_on_the_cpu_route(tmp_path, arch):
+    proc = _cli(["--arch", arch, "--multi-pod", "both", "--device", "cpu", "--out",
+                 str(tmp_path)], ROOT, timeout=SWEEP_TIMEOUT_S)
     assert proc.returncode == 0, proc.stdout[-3000:]
-    assert len(list(tmp_path.glob("*.json"))) == 80
+    assert len(list(tmp_path.glob("*.json"))) == 2 * len(SHAPES)

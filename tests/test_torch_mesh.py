@@ -50,7 +50,10 @@ parameters, carried over as float32).
   unsharded step's), AdamW ``eps`` 1 as above. Tolerances as for the
   decode: 1e-4 in float32, 2e-2 in bfloat16, 1e-5 against the port's own
   unsharded steps (relative; absolute 1e-5 for the prefill, 1e-7 for the
-  parameters).
+  parameters). One step moves a smoke weight by ~1e-5, inside those
+  tolerances, so in float32 each leaf's change (after less start) is also
+  held to the wanted change within 1e-4 of the latter's norm; the port's
+  step on the first slot alone, a control, must miss that against JAX.
 """
 import json
 import os
@@ -90,6 +93,11 @@ SELF_TOL = dict(rtol=1e-5, atol=1e-6)
 #: also sum the out-projection and the out-norm's mean square over ranks
 #: (jamba smoke: 14 of them), ~1e-6 in logits of ~1e-2
 PREFILL_SELF_TOL = dict(rtol=1e-5, atol=1e-5)
+#: a float32 train step's change of each leaf (after less start) against
+#: the wanted change, relative to the norm of the latter: one step moves a
+#: smoke weight by ~1e-5, far inside the parameters' own tolerances, so the
+#: change itself is held (bfloat16 rounds most of it away: no such check)
+STEP_RTOL = 1e-4
 #: (name, arch, mesh, batch, seq_shard, use_kernel, dtype, config overrides)
 DECODE = [
     ("g8-2x2", "granite-3-8b", (2, 2), B, True, False, "float32", {}),
@@ -368,14 +376,19 @@ def train_with_jax(z, arch, dtype, overrides):
     return out
 
 
-def train_with_port(z, arch, overrides):
+def train_with_port(z, arch, overrides, slots=None):
+    """The port's unsharded step; with ``slots``, on the first ``slots``
+    micro-batches only (a control that a check of the step must catch)."""
     from repro_torch.optim import adamw as tadamw
     from repro_torch.train.train_step import make_train_step
 
     cfg = replace(tconfigs.get_config(arch).smoke(), dtype="float32", **overrides)
     params = params_from_numpy(_tree(z, f"{arch}/params"), "cpu")
+    batch = workers._batch(z, f"{arch}/train", torch.float32)
+    if slots is not None:
+        batch = {k: v if k == "positions" else v[:slots] for k, v in batch.items()}
     p2, _, m = make_train_step(cfg, tadamw.AdamWConfig(**OPT))(
-        params, tadamw.init(params), workers._batch(z, f"{arch}/train", torch.float32))
+        params, tadamw.init(params), batch)
     out = {f"params/{k}": f32(v) for k, v in tadamw.leaves(p2)}
     out["loss"] = f32(m["loss"])
     return out
@@ -411,6 +424,8 @@ def runs(tmp_path_factory):
         jax_train = {c[0]: train_with_jax(z, c[1], c[3], c[4]) for c in TRAIN}
         port_train = {c[0]: train_with_port(z, c[1], c[4]) for c in TRAIN
                       if c[3] == "float32"}
+        first_slot = {c[0]: train_with_port(z, c[1], c[4], slots=1) for c in TRAIN
+                      if c[3] == "float32"}
         stdout, stderr = jax_proc.communicate(timeout=240)
     finally:
         if jax_proc.poll() is None:
@@ -420,7 +435,7 @@ def runs(tmp_path_factory):
     return {"ranks": ranks, "jax_decode": jax_ref, "port_decode": port_ref,
             "jax": dict(np.load(tmp / "jax.npz")), "inputs": z,
             "jax_prefill": jax_prefill, "port_prefill": port_prefill,
-            "jax_train": jax_train, "port_train": port_train}
+            "jax_train": jax_train, "port_train": port_train, "first_slot": first_slot}
 
 
 @pytest.mark.parametrize("case", DECODE, ids=[c[0] for c in DECODE])
@@ -621,17 +636,37 @@ def _flat_specs(tree, prefix=""):
     return [x for k, v in tree.items() for x in _flat_specs(v, f"{prefix}/{k}")]
 
 
+def _step_err(got, want, start):
+    """The largest, over leaves, of |(got - start) - (want - start)| /
+    |want - start| (Frobenius norms, float64): how far a step's change of the
+    parameters is from the wanted change."""
+    worst = 0.0
+    for k, w in want.items():
+        w, g, s0 = (np.asarray(a, np.float64) for a in (w, got[k], start[k]))
+        worst = max(worst, float(np.linalg.norm(g - w) / max(np.linalg.norm(w - s0), 1e-300)))
+    return worst
+
+
 @pytest.mark.parametrize("case", TRAIN, ids=[c[0] for c in TRAIN])
 def test_sharded_train_step_matches_jax(runs, case):
-    name, dtype = case[0], case[3]
+    name, arch, dtype = case[0], case[1], case[3]
     got, want = runs["ranks"], runs["jax_train"][name]
     keys = [k for k in want if k.startswith("params/")]
     assert keys and len(keys) == sum(k.startswith(f"{name}/params/") for k in got[0])
+    start = {k: runs["inputs"][f"{arch}/{k}"] for k in keys}
     for rank in got:
         np.testing.assert_allclose(rank[f"{name}/loss"], want["loss"], **TOL[dtype])
         assert int(rank[f"{name}/step"]) == 1
         for k in keys:
             np.testing.assert_allclose(rank[f"{name}/{k}"], want[k], **TOL[dtype], err_msg=k)
+        if dtype == "float32":
+            mine = {k: rank[f"{name}/{k}"] for k in keys}
+            err = _step_err(mine, {k: want[k] for k in keys}, start)
+            assert err <= STEP_RTOL, f"the step's change is {err:.3e} off JAX's"
+    if dtype == "float32":
+        # The control: the first slot's step alone must miss the bound.
+        control = _step_err(runs["first_slot"][name], {k: want[k] for k in keys}, start)
+        assert control > STEP_RTOL, f"the first slot's step is only {control:.3e} off"
 
 
 @pytest.mark.parametrize("case", [c for c in TRAIN if c[3] == "float32"],
@@ -648,3 +683,7 @@ def test_sharded_train_step_matches_unsharded_port(runs, case):
             start = z[f"{case[1]}/{key}"]
             moved += not np.array_equal(got[f"{name}/{key}"], start)
     assert moved > 0
+    keys = [k for k in want if k.startswith("params/")]
+    err = _step_err({k: got[f"{name}/{k}"] for k in keys}, {k: want[k] for k in keys},
+                    {k: z[f"{case[1]}/{k}"] for k in keys})
+    assert err <= STEP_RTOL, f"the step's change is {err:.3e} off the unsharded step's"

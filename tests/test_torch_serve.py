@@ -358,3 +358,30 @@ def test_every_config_builds():
 def test_param_count_matches_reference(arch):
     assert tcount(tmodel.model_schema(tconfigs.get_config(arch))) == \
         jcount(jmodel.model_schema(jconfigs.get_config(arch)))
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "musicgen-large"])
+def test_embedding_of_vocab_slices_sums_to_the_whole_and_checks_ids(arch):
+    """A rank's slice of the token table embeds the ids in its rows and gives
+    zero rows elsewhere, so the slices sum to the whole table's embedding,
+    as JAX's; the whole table indexes as it is, so an id past the vocab
+    raises."""
+    from repro_torch.models import layers as tlayers
+
+    cfg = replace(tconfigs.get_config(arch).smoke(), dtype="float32")
+    params = {"tok": tmodel.init_params(cfg, 0, device="cpu")["embed"]["tok"].float()}
+    vdim = 1 if cfg.modality == "audio_codes" else 0
+    vocab = params["tok"].shape[vdim]
+    shape = (2, 8, cfg.num_codebooks) if cfg.modality == "audio_codes" else (2, 8)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, vocab, shape))
+    whole = tlayers.apply_embed(params, ids, cfg)
+    want = jlayers.apply_embed({"tok": jnp.asarray(params["tok"].numpy())},
+                               jnp.asarray(ids.numpy()),
+                               replace(jconfigs.get_config(arch).smoke(), dtype="float32"))
+    np.testing.assert_allclose(whole.numpy(), np.asarray(want, np.float32), rtol=0, atol=0)
+    step = vocab // 4
+    parts = sum(tlayers.apply_embed({"tok": params["tok"].narrow(vdim, r0, step)}, ids, cfg,
+                                    row0=r0) for r0 in range(0, vocab, step))
+    torch.testing.assert_close(parts, whole, rtol=0, atol=0)
+    with pytest.raises(IndexError):
+        tlayers.apply_embed(params, ids + vocab, cfg)

@@ -378,6 +378,20 @@ def test_train_step_takes_float32_gradient_sums():
         torch.testing.assert_close(got, w, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("arch", ["falcon-demo-100m", "qwen2-vl-72b"])
+def test_train_step_raises_on_a_leaf_the_loss_does_not_reach(arch):
+    """Only a vision model's token table may take no part in the loss (its
+    inputs are embeds); any other such leaf is a wiring fault and raises."""
+    cfg = tconfigs.get_config(arch).smoke()
+    data = tpipeline.DataConfig(seq_len=16, global_batch=2, slots=1, dp_groups=1)
+    params = tmodel.init_params(cfg, 0, device="cpu")
+    batch = {k: torch.as_tensor(v) for k, v in tpipeline.make_batch(cfg, data, 0).items()}
+    step = tts.make_train_step(cfg, tadamw.AdamWConfig())
+    params["stray"] = {"w": torch.zeros(3)}
+    with pytest.raises(RuntimeError, match="not have been used"):
+        step(params, tadamw.init(params), batch)
+
+
 def test_train_step_kernel_route_raises():
     """The SSD kernel has no gradient, so a mamba train step with
     ``use_kernel`` raises, as the reference's does under ``jax.grad``."""
