@@ -1,0 +1,5 @@
+"""idle_pct.ssm_train: ``idle_pct.train`` in the cells that report
+``ssm_train_tokens_per_s``."""
+from portbench import bench
+
+read = bench.reader("idle_pct.train")
