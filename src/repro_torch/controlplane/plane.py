@@ -41,6 +41,7 @@ from repro_torch.core.events import (
     strategy_label,
 )
 from repro_torch.core.planner import MitigationPlanner, PlannerKnobs
+from repro_torch.obs import runtime
 from repro_torch.controlplane.events import (
     ControlEvent,
     Diagnosis,
@@ -443,7 +444,10 @@ class ControlPlane:
         """Feed one iteration time through the full per-job pipeline.
 
         Returns the events emitted for this sample; the caller charges any
-        :class:`MitigationResult.overhead` to the job's wall clock.
+        :class:`MitigationResult.overhead` to the job's wall clock. The
+        detector and the planning after it are the
+        :mod:`repro_torch.obs.runtime` spans ``falcon.detect`` and
+        ``falcon.plan``.
         """
         job = self._jobs[job_id]
         out: list[ControlEvent] = [
@@ -458,8 +462,10 @@ class ControlPlane:
         job._last_seen = now
         job._alarmed = False
         had_active = job.detector.active_event is not None
-        new_event = job.detector.observe(iter_time, now)
-        out += self._after_detection(job, new_event, had_active, iter_time, now)
+        with runtime.span("falcon.detect"):
+            new_event = job.detector.observe(iter_time, now)
+        with runtime.span("falcon.plan"):
+            out += self._after_detection(job, new_event, had_active, iter_time, now)
         self.events += out
         return out
 

@@ -25,7 +25,6 @@ hand it any parameters (the tests: the JAX package's, carried over).
 from __future__ import annotations
 
 import argparse
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,6 +39,7 @@ from repro_torch.core.events import FailSlowEvent
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import parse_injection
 from repro_torch.models import layers, model as model_lib, transformer
+from repro_torch.obs import runtime
 from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
 #: FalconDetect's verification window on the per-token latency stream
@@ -118,8 +118,19 @@ def serve(
     ``params`` live on ``device`` (None = the card, raising when there is
     none); ``inject`` holds ``kind:target:severity:start:duration`` texts or
     :class:`Injection` objects.
+
+    The call is one ``serve.batch`` span of :mod:`repro_torch.obs.runtime`:
+    ``serve.prefill`` (the region ``prefill_s`` times), then per generated
+    token ``serve.decode`` over ``serve.dispatch`` (the decode step's
+    enqueue), ``serve.wait`` (the synchronise; ``step_s`` runs from the
+    dispatch's start to the wait's end), ``falcon.observe`` and
+    ``serve.sample``.
     """
-    dev = resolve_device(device)
+    with runtime.span("serve.batch"):
+        return _serve(cfg, params, prompt, gen, use_kernel, inject, resolve_device(device))
+
+
+def _serve(cfg, params, prompt, gen, use_kernel, inject, dev) -> ServeResult:
     batch = dict(prompt) if isinstance(prompt, dict) else {"tokens": prompt}
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
     lead = batch["embeds"] if cfg.modality == "vision_embeds" else batch["tokens"]
@@ -135,10 +146,9 @@ def serve(
     decode = make_decode_step(cfg, total, use_kernel=use_kernel)
 
     _sync(dev)
-    t0 = time.perf_counter()
-    prefill_logits, caches = prefill(params, batch)
-    _sync(dev)
-    prefill_s = time.perf_counter() - t0
+    with runtime.timed("serve.prefill") as timed_prefill:
+        prefill_logits, caches = prefill(params, batch)
+        _sync(dev)
     caches = transformer.grow_caches(caches, cfg, total)
 
     tok, _ = _next_input(params, prefill_logits, cfg, b)
@@ -146,23 +156,27 @@ def serve(
     events, step_s, latencies, generated = [], [], [], []
     wall = 0.0
     for step in range(gen):
-        t1 = time.perf_counter()
-        logits, caches = decode(params, tok, caches, s0 + step)
-        _sync(dev)
-        measured = time.perf_counter() - t1
-        injector.apply(sim.state, wall)
-        latency = sim.iteration_time() if injector.injections else measured
-        wall += latency
-        ev = detector.observe(latency, wall)
-        if ev is not None:
-            events.append((step, ev))
-        step_s.append(measured)
-        latencies.append(latency)
-        tok, rec = _next_input(params, logits, cfg, b)
-        generated.append(rec.cpu().numpy())
+        with runtime.span("serve.decode", token=step):
+            with runtime.timed("serve.dispatch") as dispatch:
+                logits, caches = decode(params, tok, caches, s0 + step)
+            with runtime.timed("serve.wait") as wait:
+                _sync(dev)
+            measured = wait.end - dispatch.start
+            with runtime.span("falcon.observe"):
+                injector.apply(sim.state, wall)
+                latency = sim.iteration_time() if injector.injections else measured
+                wall += latency
+                ev = detector.observe(latency, wall)
+                if ev is not None:
+                    events.append((step, ev))
+            step_s.append(measured)
+            latencies.append(latency)
+            with runtime.span("serve.sample"):
+                tok, rec = _next_input(params, logits, cfg, b)
+                generated.append(rec.cpu().numpy())
     tokens = np.stack(generated, axis=1) if generated else np.zeros((b, 0), np.int64)
     return ServeResult(tokens=tokens, events=events, prefill_logits=prefill_logits,
-                       logits=logits, prefill_s=prefill_s, step_s=step_s,
+                       logits=logits, prefill_s=timed_prefill.seconds, step_s=step_s,
                        latencies=latencies, modeled=bool(injector.injections))
 
 

@@ -25,8 +25,16 @@ docs/observability.md).
   package ``__init__`` must stay a leaf (the cluster simulator imports
   :mod:`repro_torch.obs.collectives`).
 
-Everything here is pure Python on the simulated clock: nothing reads a
-device or a wall clock.
+* :mod:`repro_torch.obs.runtime` — host-clock spans inside the trainer,
+  the train step, ``ControlPlane.observe`` and the serve loop, on while a
+  ``torch.profiler`` profile is active (then ``user_annotation`` events in
+  its trace, over the kernels) or inside ``runtime.recording()``; off they
+  cost a flag check. Imported explicitly (``from repro_torch.obs import
+  runtime``): it loads torch.
+
+Everything else here is pure Python on the simulated clock: nothing reads
+a device or a wall clock. ``runtime`` alone reads the host clock and, on a
+card, CUDA events.
 """
 from repro_torch.obs.collectives import (  # noqa: F401
     COMPONENTS,

@@ -14,9 +14,12 @@ Perfetto or ``chrome://tracing`` to browse a campaign's control-plane
 timeline: tick cadence, watchdog silence windows, executor attempt/retry
 cycles, per-job fault episodes.
 
-Timestamps are simulated seconds; the exporter converts to integer
-microseconds. Nothing here reads a wall clock, so tracing never perturbs
-the traced run.
+Timestamps are seconds of whatever clock the caller reads; the exporter
+converts to integer microseconds. The control plane and the campaigns
+record simulated seconds, and nothing here reads a wall clock, so their
+tracing never perturbs the traced run. :mod:`repro_torch.obs.runtime`
+records the port's loops into a tracer of its own on the host clock
+(``time.perf_counter``).
 """
 from __future__ import annotations
 
@@ -138,6 +141,12 @@ class SpanTracer:
 
     def __len__(self) -> int:
         return len(self._events)
+
+    def events(self) -> list[tuple]:
+        """Finished events in record order: ``(phase, track, name, ts, dur,
+        args)``, phase ``"X"`` (span), ``"i"`` (instant) or ``"C"``
+        (counter)."""
+        return list(self._events)
 
     # ------------------------------------------------------------ export
     def to_chrome(self) -> dict:

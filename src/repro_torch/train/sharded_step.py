@@ -49,7 +49,9 @@ from repro_torch.train.train_step import _grads, _take_slot, _unflatten
 def train_step(params, opt_state: adamw.AdamWState, batch: dict, cfg: ArchConfig,
                opt_cfg: adamw.AdamWConfig, mesh):
     """One step on ``mesh``; returns ``(params, opt_state, {"loss": ...})``
-    with the parameters and moments updated in place (the same DTensors)."""
+    with the parameters and moments updated in place (the same DTensors).
+    Unlike the unsharded step it opens no :mod:`repro_torch.obs.runtime`
+    spans: no benchmark cell runs it."""
     trees = (params, opt_state.mu, opt_state.nu)
     if not all(is_dtensor(t) for tree in trees for _, t in adamw.leaves(tree)):
         raise TypeError("the sharded train step updates parameters and moments in place: "

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_lib
+from repro_torch.obs import runtime
 from repro_torch.optim import adamw
 from repro_torch.sharding import ambient_mesh
 
@@ -50,9 +51,15 @@ def make_train_step(
     ``use_kernel`` takes the CUDA SSD scan, which has no gradient: it raises
     here as the reference's kernel does under ``jax.grad``.
 
+    The plain step opens :mod:`repro_torch.obs.runtime` spans: one
+    ``train.forward`` and one ``train.backward`` (the gradients and their
+    accumulation) a micro-batch, then ``train.optimizer`` (the mean over
+    slots and the AdamW update).
+
     Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) the step
     runs per rank on DTensor shards (:mod:`repro_torch.train.sharded_step`,
-    plain routes only)."""
+    plain routes only). That path opens no spans: no benchmark cell runs
+    it."""
 
     def train_step(params, opt_state, batch):
         mesh = ambient_mesh()
@@ -70,20 +77,23 @@ def make_train_step(
         gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
         lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
         for i in range(slots):
-            mb = _take_slot(batch, i, cfg)
-            loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
-            grads = _grads(loss, flat, paths, cfg)
+            with runtime.span("train.forward", slot=i):
+                mb = _take_slot(batch, i, cfg)
+                loss, _ = _microbatch_loss(params, mb, cfg, use_kernel)
+            with runtime.span("train.backward", slot=i):
+                grads = _grads(loss, flat, paths, cfg)
+                with torch.no_grad():
+                    for acc, g in zip(gsum, grads):
+                        if g is not None:
+                            acc.add_(g)
+                del grads
+                lsum = lsum + loss.detach()
+        with runtime.span("train.optimizer"):
             with torch.no_grad():
-                for acc, g in zip(gsum, grads):
-                    if g is not None:
-                        acc.add_(g)
-            del grads
-            lsum = lsum + loss.detach()
-        with torch.no_grad():
-            for acc in gsum:
-                acc.div_(slots)
-        grads = _unflatten(paths, gsum)
-        params, opt_state = adamw.update(opt_cfg, grads, opt_state, params)
+                for acc in gsum:
+                    acc.div_(slots)
+            grads = _unflatten(paths, gsum)
+            params, opt_state = adamw.update(opt_cfg, grads, opt_state, params)
         return params, opt_state, {"loss": lsum / slots}
 
     return train_step
@@ -105,7 +115,8 @@ def make_adaptive_train_step(
     S, ...) batch (whole tensors, or DTensors placed by
     ``train_batch_specs``), ``counts`` the micro-batches of each DP group
     (length = the DP size, groups in mesh order). Group g runs its first
-    ``counts[g]`` slots on its columns of the batch."""
+    ``counts[g]`` slots on its columns of the batch. It opens no
+    :mod:`repro_torch.obs.runtime` spans: no benchmark cell runs it."""
     from repro_torch.sharding import P
     from repro_torch.sharding.manual import all_reduce, axis_index, local_shard
     from repro_torch.sharding.partition import batch_axes, mesh_axis_size, spec_axes

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import os
 import tempfile
-import time
 import warnings
 from dataclasses import dataclass, field
 
@@ -42,11 +41,11 @@ from repro_torch.controlplane import ControlPlane, MitigationResult
 from repro_torch.controlplane.strategies import MitigationContext
 from repro_torch.core.detector import FalconDetect
 from repro_torch.core.events import Strategy, strategy_label
-from repro_torch.core.monitor import Monitor
 from repro_torch.core.planner import DEFAULT_OVERHEADS
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
+from repro_torch.obs import runtime
 from repro_torch.optim import adamw
 from repro_torch.train import train_step as ts_lib
 from repro_torch.train.checkpoint import CheckpointManager
@@ -83,7 +82,6 @@ class FalconTrainer:
 
     params: dict = field(init=False)
     opt_state: adamw.AdamWState = field(init=False)
-    monitor: Monitor = field(init=False)
     control: ControlPlane | None = field(init=False, default=None)
     detector: FalconDetect | None = field(init=False, default=None)
     history: list[StepRecord] = field(init=False, default_factory=list)
@@ -96,9 +94,6 @@ class FalconTrainer:
         self._device = resolve_device(self.device)
         self.params = model_lib.init_params(self.cfg, self.seed, device=self._device)
         self.opt_state = adamw.init(self.params)
-        # The monitor logs on the trainer's simulated wall clock, so comm
-        # events and control-plane events share one timebase.
-        self.monitor = Monitor(clock=lambda: self._wall)
         self.ckpt = CheckpointManager(self.ckpt_dir)
         self.allocation = [self.data.slots] * self.data.dp_groups
         if self.perf_model is not None:
@@ -171,32 +166,38 @@ class FalconTrainer:
 
     # ------------------------------------------------------------------
     def run(self, num_steps: int) -> list[StepRecord]:
+        """Run ``num_steps`` steps. Each is one ``train.step`` span of
+        :mod:`repro_torch.obs.runtime`: ``train.batch``, ``train.compute``
+        (the region ``step_seconds`` times), ``falcon.model`` and
+        ``falcon.observe``."""
         for step in range(num_steps):
+            with runtime.span("train.step", step=len(self.history)):
+                self._step(step)
+        return self.history
+
+    def _step(self, step: int) -> None:
+        with runtime.span("train.batch"):
             batch = {
                 k: torch.as_tensor(v, device=self._device)
                 for k, v in make_batch(self.cfg, self.data, step).items()
             }
             self._sync()
-            t0 = time.monotonic()
+        with runtime.timed("train.compute") as compute:
             self.params, self.opt_state, metrics = self._step_fn(
                 self.params, self.opt_state, batch
             )
             loss = float(metrics["loss"])
             self._sync()
-            measured = time.monotonic() - t0
-            self.step_seconds.append(measured)
+        measured = compute.seconds
+        self.step_seconds.append(measured)
 
+        with runtime.span("falcon.model"):
             iter_time = self._observed_iter_time(measured, self._wall)
             self._wall += iter_time
-            for ev in (
-                self.perf_model.emit_events(self._wall - iter_time, iter_time)
-                if self.perf_model
-                else []
-            ):
-                self.monitor.extend([ev])
 
-            strategy_applied: str | None = None
-            if self.falcon_enabled and self.control is not None:
+        strategy_applied: str | None = None
+        if self.falcon_enabled and self.control is not None:
+            with runtime.span("falcon.observe"):
                 for ev in self.control.observe("train", iter_time, self._wall):
                     if not isinstance(ev, MitigationResult):
                         continue
@@ -210,16 +211,15 @@ class FalconTrainer:
                         self._wall += ev.overhead
                         strategy_applied = strategy_label(ev.strategy)
 
-            self.history.append(
-                StepRecord(
-                    step=step,
-                    loss=loss,
-                    iter_time=iter_time,
-                    wall_time=self._wall,
-                    strategy=strategy_applied,
-                )
+        self.history.append(
+            StepRecord(
+                step=step,
+                loss=loss,
+                iter_time=iter_time,
+                wall_time=self._wall,
+                strategy=strategy_applied,
             )
-        return self.history
+        )
 
 
 # ---------------------------------------------------------------- S3 util
