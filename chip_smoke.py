@@ -23,7 +23,9 @@ order:
    ``flash_decode`` (GQA rep 4, MQA, per-sequence lengths, valid_len 1 and
    0, a cache length off the split grid, MHA rep 1 at the OLMoE serve
    shape) and ``flash_attention`` (causal,
-   non-causal, a window, a ragged Sq) in float32 and bfloat16; ``ssd_scan``
+   non-causal, a window, a ragged Sq, the 4,096-token forward and the serve
+   prefills of phases 6 and 16 and of the benchmark, up to (16, 3,968,
+   32/8, 128)) in float32 and bfloat16; ``ssd_scan``
    (the reference's three test shapes, two groups included, and the
    mamba2-2.7b forward shape, also with a dt 100x smaller that carries the
    state through every chunk) in float32 and bfloat16, y and final state,
@@ -43,7 +45,8 @@ order:
 6. serving (slice 2's main path): ``repro_torch.launch.serve.serve`` with
    granite-3-8b at its published width, ``use_kernel``, 8 requests x
    (1,024 prompt + 64 generated) and ``gpu:1:0.5:5:200`` injected:
-   ``flash_decode`` launched 40 x 64 times, finite logits, the FALCON onset
+   ``flash_attention`` launched 40 times (the prefill) and ``flash_decode``
+   40 x 64 times, finite logits, the FALCON onset
    of a CPU run of the same latency loop (token 36, gpu_degradation on
    gpu:1);
 7. forward: ``model.forward(use_kernel=True)`` over a 4,096-token prompt,
@@ -60,7 +63,8 @@ order:
    evaluation with the host included, the packed route (one upload, one
    launch, one download) against the unpacked one in turns, held to
    EVAL_RATIO;
-9. parity at the published width, kernel route against plain route:
+9. parity at the published width, kernel route against plain route: the
+   prefill of phase 6's prompt (last-token logits and every cache leaf),
    teacher-forced decode on the same caches and the 4,096-token forward;
    bf16 differences reported, float32 (weights upcast exactly) held to a
    tolerance. granite-3-8b's tensors are released after it;
@@ -108,7 +112,8 @@ order:
     ``bocd_step`` launches and the replay stats are reported;
 16. olmoe-1b-7b (slice 8's MoE) at its published width: ``serve`` with 8
     requests x (1,024 prompt + 64 generated), ``use_kernel`` and
-    ``gpu:1:0.5:0.5:200``: ``flash_decode`` launched 16 x 64 times, finite
+    ``gpu:1:0.5:0.5:200``: ``flash_attention`` launched 16 times (the
+    prefill) and ``flash_decode`` 16 x 64 times, finite
     logits, the FALCON onset of the CPU latency loop (token 31); a forward
     over 4,096 tokens with the config's window (4,096), ``flash_attention``
     launched 16 times, the bf16 plain route reported; in float32 (weights
@@ -246,9 +251,11 @@ ATT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 # bound alone would pass a kernel that dropped a tile there. Sound bf16
 # rows read a few 1e-3 (P and the output each rounded to bf16); a row
 # missing one 128-key tile of n keys reads about sqrt(128 / n), 0.18 at
-# n = 4,096. Phase 3 prints both readings at the forward shape.
+# n = 4,096. Phase 3 prints both readings at every shape of FAULT_LEN
+# tokens or more; the fault reading leaves out the key tile at half the
+# keys (tile 16, keys 2,048-2,175, at 4,096).
 ATT_ROW_REL = 2e-2
-FAULT_TILE = 16   # the key tile the fault reading leaves out (keys 2,048-2,175)
+FAULT_LEN = 1024
 # Model logits, kernel route vs plain route on the same weights and caches,
 # held in float32 (weights upcast exactly): there the two routes differ only
 # in the attention's summation order (~1e-6 relative per layer). In bf16 one
@@ -569,12 +576,13 @@ def _row_rel(torch, name, got, want, limit=ATT_ROW_REL):
 
 def _one_tile_fault(torch, q, k, v, want):
     """The relative L2 error of the rows of a causal attention that a kernel
-    leaving out key tile FAULT_TILE (128 keys) would get wrong: the plain
-    version's math with those keys masked for every later row, against
-    ``want``. Returns (least, most) over those rows."""
+    leaving out the key tile at half the keys (128 keys) would get wrong:
+    the plain version's math with those keys masked for every later row,
+    against ``want``. Returns (tile, least, most) over those rows."""
     b, sq, h, hd = q.shape
     skv, rep = k.shape[1], h // k.shape[2]
-    k0 = FAULT_TILE * 128
+    tile = skv // 256
+    k0 = tile * 128
     r0 = k0 + 128
     kf = torch.repeat_interleave(k, rep, dim=2).float()
     vf = torch.repeat_interleave(v, rep, dim=2).float()
@@ -586,7 +594,7 @@ def _one_tile_fault(torch, q, k, v, want):
     fault = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype).double()
     w = want[:, r0:].double()
     rel = (fault - w).norm(dim=-1) / w.norm(dim=-1)
-    return float(rel.min()), float(rel.max())
+    return tile, float(rel.min()), float(rel.max())
 
 
 def _normal(torch, seed, shape, dtype):
@@ -614,6 +622,13 @@ ATTENTION_CASES = (   # label, B, Sq, Skv, H, KVH, hd, causal, window
     ("ragged Sq 130", 2, 130, 130, 4, 4, 128, True, 0),
     ("MQA, Sq 96 != Skv 160, non-causal", 1, 96, 160, 8, 1, 64, False, 0),
     ("the forward shape", 1, 4096, 4096, 32, 8, 128, True, 0),
+    # The serve prefills' (window 0: serve_window keeps the config's window
+    # for contexts past 64k): phase 6's, phase 16's (OLMoE, MHA), the
+    # benchmark's (granite-3-8b.serve-rag); and OLMoE's with its window.
+    ("the phase 6 prefill", 8, 1024, 1024, 32, 8, 128, True, 0),
+    ("the phase 16 prefill", 8, 1024, 1024, 16, 16, 128, True, 0),
+    ("OLMoE's window 4,096", 8, 1024, 1024, 16, 16, 128, True, 4096),
+    ("the benchmark's prefill", 16, 3968, 3968, 32, 8, 128, True, 0),
 )
 
 
@@ -658,7 +673,11 @@ def phase_attention_kernels(torch):
             k = _normal(torch, 51 + 3 * i, (b, skv, kvh, hd), dt)
             v = _normal(torch, 52 + 3 * i, (b, skv, kvh, hd), dt)
             got = flash_attention(q, k, v, causal=causal, window=window)
-            want = flash_attention_reference(q, k, v, causal=causal, window=window)
+            # one sequence at a time: the plain version holds (H, Sq, Skv)
+            # float32 scores, 2 GB at the benchmark's 3,968 tokens
+            want = torch.cat([flash_attention_reference(q[j:j + 1], k[j:j + 1], v[j:j + 1],
+                                                        causal=causal, window=window)
+                              for j in range(b)])
             torch.cuda.synchronize()
             e = _att_err(torch, f"flash_attention {dt_name} {label}", got, want, dt_name)
             worst = max(worst, e)
@@ -666,14 +685,19 @@ def phase_attention_kernels(torch):
             if dt_name == "bfloat16":
                 rel = _row_rel(torch, f"flash_attention {label}", got, want)
                 row_worst = max(row_worst, rel)
-                if sq == FORWARD_LEN:
-                    fault = _one_tile_fault(torch, q, k, v, want)
-                    need(fault[0] > ATT_ROW_REL,
-                         f"flash_attention: a row missing key tile {FAULT_TILE} reads "
-                         f"{fault[0]:.3e}, within the row limit {ATT_ROW_REL:.0e}")
-                    log(f"[3 kernels] flash_attention bf16 forward shape: worst row rel L2 "
-                        f"{rel:.3e} (kernel vs plain); rows missing key tile {FAULT_TILE} "
-                        f"read {fault[0]:.3e}-{fault[1]:.3e}; limit {ATT_ROW_REL:.0e}")
+                if sq >= FAULT_LEN:
+                    # every such case is causal with Sq = Skv and no window
+                    # narrower than the prompt, as the fault reading takes;
+                    # it reads the batch's last sequence
+                    tile, least, most = _one_tile_fault(torch, q[-1:], k[-1:], v[-1:],
+                                                        want[-1:])
+                    need(least > ATT_ROW_REL,
+                         f"flash_attention {label}: a row missing key tile {tile} reads "
+                         f"{least:.3e}, within the row limit {ATT_ROW_REL:.0e}")
+                    log(f"[3 kernels] flash_attention bf16 {label} ({b}, {sq}, {h}/{kvh}, "
+                        f"{hd}): worst row rel L2 {rel:.3e} (kernel vs plain); rows "
+                        f"missing key tile {tile} read {least:.3e}-{most:.3e}; limit "
+                        f"{ATT_ROW_REL:.0e}")
             del q, k, v, got, want
         errs[("flash_attention", dt_name)] = worst
         rows = f"; worst row rel L2 {row_worst:.2e}" if dt_name == "bfloat16" else ""
@@ -996,18 +1020,46 @@ def _logit_diff(torch, got, want, vocab):
     return float(diff.max()), bad, rel, agree
 
 
+def _cache_diff(torch, got, want):
+    """(max abs difference, entries outside PARITY_TOL, worst leaf's
+    relative L2 difference) of two prefills' caches, leaf by leaf."""
+    need(sorted(got) == sorted(want), f"cache keys {sorted(got)} vs {sorted(want)}")
+    worst, bad, rel = 0.0, 0, 0.0
+    rtol, atol = PARITY_TOL
+    for key, leaves in want.items():
+        need(sorted(got[key]) == sorted(leaves), f"cache leaves of {key} differ")
+        for name, w in leaves.items():
+            g, w = got[key][name].double(), w.double()
+            need(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                 f"cache {key}/{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or "
+                 "not finite")
+            diff = (g - w).abs()
+            worst = max(worst, float(diff.max()))
+            bad += int((diff > atol + rtol * w.abs()).sum())
+            rel = max(rel, float(torch.linalg.vector_norm(g - w)
+                                 / torch.linalg.vector_norm(w)))
+    return worst, bad, rel
+
+
 def _teacher_forced(torch, cfg, params, prompt):
-    """Decode TEACHER_STEPS tokens with the kernel route; before each step
-    the plain route runs on a copy of the same caches with the same token
-    (the plain route's token is fed to both). Returns the per-step
-    ``_logit_diff`` results."""
+    """Prefill ``prompt`` on the kernel route and on the plain route, then
+    decode TEACHER_STEPS tokens with the kernel route from the plain
+    prefill's caches; before each step the plain route runs on a copy of the
+    same caches with the same token (the plain route's token is fed to
+    both). Returns the prefills' ``_logit_diff`` and ``_cache_diff``
+    results and the per-step ``_logit_diff`` results."""
     from repro_torch.models import transformer
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
     total = SERVE_PROMPT + TEACHER_STEPS
     out = []
     with torch.no_grad():
+        got, kern_caches = make_prefill_step(cfg, SERVE_PROMPT, use_kernel=True)(
+            params, {"tokens": prompt})
         logits, caches = make_prefill_step(cfg, SERVE_PROMPT)(params, {"tokens": prompt})
+        prefill = (_logit_diff(torch, got, logits, cfg.vocab_size),
+                   _cache_diff(torch, kern_caches, caches))
+        del got, kern_caches
         caches = transformer.grow_caches(caches, cfg, total)
         kern = make_decode_step(cfg, total, use_kernel=True)
         plain = make_decode_step(cfg, total, use_kernel=False)
@@ -1019,7 +1071,7 @@ def _teacher_forced(torch, cfg, params, prompt):
             got, caches = kern(params, tok, caches, SERVE_PROMPT + step)
             out.append(_logit_diff(torch, got, want, cfg.vocab_size))
             tok = torch.argmax(want[:, -1], dim=-1).reshape(SERVE_B, 1)
-    return out
+    return prefill, out
 
 
 def _summary(diffs):
@@ -1061,6 +1113,9 @@ def phase_serve(torch, np, card):
     launches = read()
     peak = torch.cuda.max_memory_allocated()
 
+    need(launches["flash_attention"] == cfg.num_layers,
+         f"the prefill launched flash_attention {launches['flash_attention']} times, "
+         f"expected {cfg.num_layers}")
     need(launches["flash_decode"] == cfg.num_layers * SERVE_GEN,
          f"flash_decode launched {launches['flash_decode']} times, expected "
          f"{cfg.num_layers} x {SERVE_GEN}")
@@ -1130,15 +1185,27 @@ def phase_forward(torch, np, card, cfg, params):
     return launches, tokens
 
 
+def _log_prefill(dt_name, prefill):
+    (worst, bad, rel, agree), (c_worst, c_bad, c_rel) = prefill
+    held = (f", {bad} logits and {c_bad} cache entries outside rtol/atol "
+            f"{PARITY_TOL[0]}/{PARITY_TOL[1]}" if dt_name == "float32" else "")
+    log(f"[9 parity] {dt_name} prefill of phase 6's prompt ({SERVE_B} x {SERVE_PROMPT}), "
+        f"kernel vs plain route: last-token logits max abs diff {worst:.3e}, relative "
+        f"L2 {rel:.3e}, argmax agrees {agree:.4%}; caches max abs diff {c_worst:.3e}, "
+        f"worst leaf's relative L2 {c_rel:.3e}{held}")
+
+
 def phase_parity(torch, card, cfg, params, prompt, tokens):
-    """Kernel route vs plain route at the published width: teacher-forced
+    """Kernel route vs plain route at the published width: the prefill of
+    phase 6's prompt (last-token logits and every cache leaf), teacher-forced
     decode on the same caches and the 4,096-token forward. bf16 reported;
     float32 (weights upcast exactly) held to PARITY_TOL."""
     from dataclasses import replace
 
     from repro_torch.models import model as model_lib
 
-    diffs = _teacher_forced(torch, cfg, params, prompt)
+    prefill, diffs = _teacher_forced(torch, cfg, params, prompt)
+    _log_prefill("bfloat16", prefill)
     worst, bad, rel, agree = _summary(diffs)
     log(f"[9 parity] bf16 teacher-forced decode, kernel vs plain route on the same "
         f"caches, {TEACHER_STEPS} steps: max abs logit diff {worst:.3e}, relative L2 "
@@ -1146,7 +1213,8 @@ def phase_parity(torch, card, cfg, params, prompt, tokens):
     cfg32 = replace(cfg, dtype="float32")
     params32 = _as_float(torch, params)
     torch.cuda.empty_cache()
-    diffs = _teacher_forced(torch, cfg32, params32, prompt)
+    prefill32, diffs = _teacher_forced(torch, cfg32, params32, prompt)
+    _log_prefill("float32", prefill32)
     worst, bad, rel, agree = _summary(diffs)
     log(f"[9 parity] float32 teacher-forced decode, kernel vs plain route on the "
         f"same caches, {TEACHER_STEPS} steps: max abs logit diff {worst:.3e}, "
@@ -1164,6 +1232,9 @@ def phase_parity(torch, card, cfg, params, prompt, tokens):
         f"{f_agree:.4%}; card: {card}")
     del params32
     torch.cuda.empty_cache()
+    need(prefill32[0][1] == 0, f"float32 prefill: {prefill32[0][1]} logits outside tolerance")
+    need(prefill32[1][1] == 0,
+         f"float32 prefill: {prefill32[1][1]} cache entries outside tolerance")
     need(bad == 0, f"float32 teacher-forced decode: {bad} logits outside tolerance")
     need(fwd_bad == 0, f"float32 forward: {fwd_bad} logits outside tolerance")
 
@@ -2209,6 +2280,9 @@ def phase_olmoe(torch, np, card):
     torch.cuda.synchronize()
     serve_launches = read()
     peak = torch.cuda.max_memory_allocated()
+    need(serve_launches["flash_attention"] == cfg.num_layers,
+         f"the prefill launched flash_attention {serve_launches['flash_attention']} "
+         f"times, expected {cfg.num_layers}")
     need(serve_launches["flash_decode"] == cfg.num_layers * SERVE_GEN,
          f"flash_decode launched {serve_launches['flash_decode']} times, expected "
          f"{cfg.num_layers} x {SERVE_GEN}")

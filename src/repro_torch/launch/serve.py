@@ -117,7 +117,9 @@ def serve(
     batch dict (``{"embeds", "positions"}`` for a vision-embeds model).
     ``params`` live on ``device`` (None = the card, raising when there is
     none); ``inject`` holds ``kind:target:severity:start:duration`` texts or
-    :class:`Injection` objects.
+    :class:`Injection` objects. ``use_kernel`` runs the prefill's attention
+    through ``flash_attention`` and the decode's cache read through
+    ``flash_decode`` (:mod:`repro_torch.serve.serve_step`).
 
     The call is one ``serve.batch`` span of :mod:`repro_torch.obs.runtime`:
     ``serve.prefill`` (the region ``prefill_s`` times), then per generated
@@ -142,7 +144,7 @@ def _serve(cfg, params, prompt, gen, use_kernel, inject, dev) -> ServeResult:
         parse_injection(t) if isinstance(t, str) else t for t in inject
     ])
     detector = FalconDetect(cluster=sim, verify_window=VERIFY_WINDOW)
-    prefill = make_prefill_step(cfg, s0)
+    prefill = make_prefill_step(cfg, s0, use_kernel=use_kernel)
     decode = make_decode_step(cfg, total, use_kernel=use_kernel)
 
     _sync(dev)

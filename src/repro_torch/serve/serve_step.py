@@ -6,9 +6,11 @@ Sliding-window policy: architectures with ``long_context == "sliding"`` use
 their configured window past 64k tokens of context (sub-quadratic
 per-token cost AND bounded attention reads).
 
-Prefill runs the plain blocked attention and the plain chunked SSD scan,
-as in the reference (no kernel); decode takes ``use_kernel`` to the CUDA
-flash-decode kernel (a Mamba2 decode step is the recurrence, no kernel).
+``use_kernel`` takes the prefill's attention to the CUDA flash-attention
+kernel and the decode's cache read to the CUDA flash-decode kernel; without
+it both run the plain blocked attention and einsum read of the reference.
+The prefill's Mamba2 layers run the plain chunked SSD scan and a Mamba2
+decode step is the recurrence, kernel or not.
 
 Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) both steps
 run per rank on local shards with explicit collectives
@@ -56,16 +58,24 @@ def make_decode_step(
 
 
 # ------------------------------------------------------------------ prefill
-def make_prefill_step(cfg: ArchConfig, seq_len: int, *, seq_shard: bool = True) -> Callable:
+def make_prefill_step(
+    cfg: ArchConfig, seq_len: int, *, seq_shard: bool = True, use_kernel: bool = False
+) -> Callable:
     """Forward over the prompt, returning (last-token logits, filled caches
     stacked over periods: (n_periods, B, S, KVH, hd) for attention, the
-    final state and conv histories for Mamba2). Under an ambient mesh the
-    caches come placed by ``cache_specs(..., seq_shard=seq_shard)``."""
+    final state and conv histories for Mamba2). ``use_kernel`` runs the
+    attention through ``flash_attention``, one launch per attention layer.
+    Under an ambient mesh the caches come placed by ``cache_specs(...,
+    seq_shard=seq_shard)`` and the attention is the plain blocked one, which
+    has no kernel route: there ``use_kernel`` raises ValueError."""
     window = serve_window(cfg, seq_len)
 
     def prefill(params, batch):
         mesh = ambient_mesh()
         if mesh is not None:
+            if use_kernel:
+                raise ValueError("the sharded prefill has no kernel route: build the "
+                                 "step without use_kernel to run it under a mesh")
             from repro_torch.serve import sharded_prefill
 
             return sharded_prefill.prefill_step(params, batch, cfg, mesh, window=window,
@@ -85,7 +95,8 @@ def make_prefill_step(cfg: ArchConfig, seq_len: int, *, seq_shard: bool = True) 
                 key = f"sub{j}"
                 p = period[key]
                 if sub.mixer == "attn":
-                    dh, k, v = attention.attend(p["attn"], h, cfg, positions, window=window)
+                    dh, k, v = attention.attend(p["attn"], h, cfg, positions, window=window,
+                                                use_kernel=use_kernel)
                     c = {"k": k, "v": v}
                 else:
                     dh, c = ssm.mamba_forward(p["mamba"], h, cfg)

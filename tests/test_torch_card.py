@@ -370,6 +370,28 @@ def test_flash_attention_kernel_matches_plain_version(card, dtype, b, sq, skv, h
     _close(got, want, dtype)
 
 
+def test_flash_attention_at_the_serve_prefill_shape(card):
+    """The serve prefill's attention of granite-3-8b (32/8 heads of 128,
+    causal) at the benchmark's prompt, 3,968 tokens (31 tiles of 128), in
+    bf16, at batch 2. Late rows over ~4k keys are of the size of the bf16
+    atol, so each row is also held to chip_smoke's relative L2 limit, and a
+    plain version that leaves out one 128-key tile must fail that limit."""
+    cs = _chip_smoke()
+    b, s, h, kvh, hd = 2, 3968, 32, 8, 128
+    q = _normal(card, 10, (b, s, h, hd), torch.bfloat16)
+    k = _normal(card, 11, (b, s, kvh, hd), torch.bfloat16)
+    v = _normal(card, 12, (b, s, kvh, hd), torch.bfloat16)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_reference(q, k, v, causal=True)
+    _close(got, want, torch.bfloat16)
+    assert cs._row_rel(torch, "serve prefill shape", got, want) <= cs.ATT_ROW_REL
+    _, least, _ = cs._one_tile_fault(torch, q[-1:], k[-1:], v[-1:], want[-1:])
+    assert least > cs.ATT_ROW_REL
+
+
 # Tile-boundary sweep of flash_attention: sequence lengths on both sides of
 # the 16-row fragments of a warp, the 64-row tiles (a bf16 warpgroup's, the
 # float32 blocks'), the 64/128-key tiles and the 128-row bf16 blocks,

@@ -7,9 +7,10 @@ For the seven dense-attention architectures and the three mixture-of-experts
 ones (olmoe-1b-7b, qwen2-moe-a2.7b, jamba-1.5-large, whose Mamba2 layers
 ride along) at ``.smoke()`` size: prefill logits and caches, one decode
 step's logits, ``forward`` logits and aux loss, and 8 greedy tokens through
-``launch.serve.serve``. In float32 (config and parameters upcast exactly)
-the two agree to 1e-4 and the tokens are identical; in bfloat16 to the
-reference's 2e-2 (``tests/test_kernels.py:196``).
+``launch.serve.serve``; the prefill also with ``use_kernel`` (the port's
+flash attention, its plain version on the CPU). In float32 (config and
+parameters upcast exactly) the two agree to 1e-4 and the tokens are
+identical; in bfloat16 to the reference's 2e-2 (``tests/test_kernels.py:196``).
 """
 import re
 import sys
@@ -51,6 +52,9 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2
 DEEP = "jamba-1.5-large-398b"
 SERVE_CASES = [(arch, dtype) for arch in ARCHS for dtype in ("float32", "bfloat16")
                if (arch, dtype) != (DEEP, "bfloat16")]
+#: each case on the plain route (under its old id) and the kernel route
+SERVE_ROUTES = ([pytest.param(a, d, False, id=f"{a}-{d}") for a, d in SERVE_CASES]
+                + [pytest.param(a, d, True, id=f"{a}-{d}-kernel") for a, d in SERVE_CASES])
 
 
 def f32(x):
@@ -116,15 +120,20 @@ def jax_serve(cfg, params, batch, gen):
     return logits0, inputs, step_logits, np.stack(out, axis=1)
 
 
-@pytest.mark.parametrize("arch,dtype", SERVE_CASES)
-def test_serve_path_matches_jax(arch, dtype):
+@pytest.mark.parametrize("arch,dtype,use_kernel", SERVE_ROUTES)
+def test_serve_path_matches_jax(arch, dtype, use_kernel):
+    """The reference runs its plain route throughout; the port's prefill
+    runs the route ``use_kernel`` picks. The forward, the serve driver and
+    the decode steps are held on the plain route only (the driver's kernel
+    route: test_serve_prefill_calls_flash_attention_once_per_attention_layer)."""
     cfg_j, cfg_t, params_j, params_t, batch_j, batch_t = setup(arch, dtype)
     tol = TOL[dtype]
 
     # Prefill: last-token logits and the period-stacked caches.
     logits_j, caches_j = jax.jit(jserve.make_prefill_step(cfg_j, S))(params_j, batch_j)
     with torch.no_grad():
-        logits_t, caches_t = tserve.make_prefill_step(cfg_t, S)(params_t, batch_t)
+        logits_t, caches_t = tserve.make_prefill_step(cfg_t, S, use_kernel=use_kernel)(
+            params_t, batch_t)
     assert logits_t.dtype == cfg_t.activation_dtype
     np.testing.assert_allclose(f32(logits_t), f32(logits_j), **tol)
     assert sorted(caches_t) == sorted(caches_j)
@@ -133,6 +142,8 @@ def test_serve_path_matches_jax(arch, dtype):
         for name, want in leaves.items():
             np.testing.assert_allclose(f32(caches_t[key][name]), f32(want), **tol,
                                        err_msg=f"{key}/{name}")
+    if use_kernel:
+        return
 
     # Forward over the prompt.
     fwd_j, aux_j = jax.jit(lambda p, b: jmodel.forward(p, b, cfg_j))(params_j, batch_j)
@@ -265,6 +276,43 @@ def test_forward_kernel_path_matches_jax_kernel_path():
     with torch.no_grad():
         got, _ = tmodel.forward(params_t, batch_t, cfg_t, use_kernel=True)
     np.testing.assert_allclose(f32(got), f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("arch", ["granite-3-8b", DEEP])
+def test_serve_prefill_calls_flash_attention_once_per_attention_layer(
+        arch, use_kernel, monkeypatch):
+    """``serve(use_kernel=True)`` takes the prefill's attention through
+    ``kernel_ops.flash_attention``, once per attention layer over the whole
+    prompt (jamba's Mamba2 layers take none); the decode never calls it, and
+    ``use_kernel=False`` never does."""
+    cfg = tconfigs.get_config(arch).smoke()
+    params = tmodel.init_params(cfg, 0, device="cpu")
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, (B, S))
+    real, shapes = tattn.kernel_ops.flash_attention, []
+
+    def counted(q, k, v, **kw):
+        shapes.append(tuple(q.shape[:2]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn.kernel_ops, "flash_attention", counted)
+    res = tlaunch.serve(cfg, params, prompt, gen=3, use_kernel=use_kernel, device="cpu")
+    attn_layers = cfg.n_periods * sum(sub.mixer == "attn" for sub in cfg.period)
+    assert 0 < attn_layers <= cfg.num_layers
+    assert (attn_layers < cfg.num_layers) == (arch == DEEP)
+    assert shapes == ([(B, S)] * attn_layers if use_kernel else [])
+    assert res.tokens.shape == (B, 3)
+
+
+def test_kernel_prefill_refuses_an_ambient_mesh():
+    """The sharded prefill has no kernel route, so under a mesh
+    ``use_kernel=True`` raises rather than run the plain attention."""
+    from repro_torch.sharding import set_mesh
+
+    cfg = tconfigs.get_config("granite-3-8b").smoke()
+    prefill = tserve.make_prefill_step(cfg, S, use_kernel=True)
+    with set_mesh(object()), pytest.raises(ValueError, match="no kernel route"):
+        prefill({}, {"tokens": torch.zeros((B, S), dtype=torch.long)})
 
 
 def test_loss_matches_jax():
