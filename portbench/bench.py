@@ -6,7 +6,10 @@ whose ``driver`` key names the general driver ``portbench/drivers/<driver>.py``
 that runs it. The cell's own limits on the numbers that decide ``correct``
 are in ``portbench/cells/<workload>.json``. A per-layer metric is read by
 ``portbench/metrics/<name>.py``. A later cell, mix or metric is a new file
-and a new entry; no file here changes.
+and a new entry; no file here changes. A later architecture is one new
+file, ``portbench/reference/arch/<architecture>.py`` (what it holds:
+``portbench/reference/arch/__init__.py``), and a configuration file whose
+``architecture`` key names it.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ class Cell:
     limits: dict
     end_to_end: list[dict]
     per_layer: list[dict]
+    #: the checkout whose files the cell was read from
+    root: Path = ROOT
 
 
 def benchmark(root: Path = ROOT) -> dict:
@@ -63,6 +68,7 @@ def cell(name: str, bench: dict | None = None, root: Path = ROOT) -> Cell:
         limits=json.loads((root / "portbench" / "cells" / f"{name}.json").read_text())["limits"],
         end_to_end=e2e,
         per_layer=per_layer,
+        root=root,
     )
 
 

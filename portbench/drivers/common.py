@@ -10,18 +10,12 @@ import torch
 
 def port_config(conf: dict, sz: dict):
     """The port's ``ArchConfig`` of configuration file ``conf``, every size
-    taken from the file."""
-    from repro_torch.configs.base import get_config
+    taken from the file, the architecture's own through its module."""
+    from repro_torch.configs.base import SubLayer, get_config
 
     fields = {"num_layers": sz["layers"], "d_model": sz["d"], "vocab_size": sz["vocab"],
-              "norm_eps": sz["eps"]}
-    if sz["kind"] == "attn":
-        fields.update(num_heads=sz["heads"], num_kv_heads=sz["kv_heads"],
-                      head_dim=sz["head_dim"], d_ff=sz["d_ff"], rope_theta=sz["rope_theta"])
-    else:
-        fields.update(ssm_state=sz["state"], ssm_head_dim=sz["head_dim"],
-                      ssm_expand=sz["expand"], ssm_groups=sz["groups"],
-                      ssm_conv_width=sz["conv"], ssm_chunk=sz["chunk"])
+              "norm_eps": sz["eps"], **sz["arch"].port_fields(sz)}
+    fields["period"] = tuple(SubLayer(mixer, mlp) for mixer, mlp in fields["period"])
     return dataclasses.replace(get_config(conf["port_arch"]), **fields)
 
 

@@ -38,7 +38,7 @@ def prompts(seed: int, index: int, batch: int, length: int, vocab: int) -> np.nd
 class Run:
     def __init__(self, cell: bench.Cell, seed: int, device) -> None:
         self.cell, self.seed, self.device = cell, seed, torch.device(device)
-        self.sz = weights.sizes(cell.config)
+        self.sz = weights.sizes(cell.config, cell.root)
         self.arch = port_config(cell.config, self.sz)
         self.tr = cell.traffic
         marks = [("imports", time.perf_counter())]
@@ -107,7 +107,7 @@ def flops_per_batch(sz: dict, tr: dict) -> float:
     layer)."""
     b, s0, gen = tr["batch"], tr["prompt_len"], tr["gen"]
     dense = 2.0 * yardstick.matmul_params(sz) * b * (s0 + gen)
-    prefill = b * yardstick.mixer_flops_forward(sz, s0)
+    prefill = b * sz["arch"].mixer_flops_forward(sz, s0)
     decode = b * sz["layers"] * sum(4.0 * (s0 + i + 1) * sz["heads"] * sz["head_dim"]
                                     for i in range(gen))
     return dense + prefill + decode

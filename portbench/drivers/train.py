@@ -57,7 +57,7 @@ class Run:
 
         self.cell, self.seed, self.device = cell, seed, torch.device(device)
         conf, tr = cell.config, cell.traffic
-        self.sz = sz = weights.sizes(conf)
+        self.sz = sz = weights.sizes(conf, cell.root)
         arch = port_config(conf, sz)
         job = conf["deployment"]["watched_job"]
         sim = TrainingSimulator(
@@ -230,8 +230,9 @@ def run(cell: bench.Cell, seed: int, seconds: float, trace: bool, device, t0: fl
 def study(cell: bench.Cell, seed: int, device, controls: bool) -> list[dict]:
     """The readings a cell's limits are set from: the port's gaps and, with
     ``controls``, those of the fp8 control, of a batch cut to its first half
-    and, for Mamba2, of a scan whose state does not cross between chunks,
-    each put in the port's place, against the float32 reference."""
+    and, where the architecture scans in chunks (its ``state_reset``), of a
+    scan whose state does not cross between them, each put in the port's
+    place, against the float32 reference."""
     r = Run(cell, seed, device)
     first = r.first
     r.free()
@@ -243,7 +244,8 @@ def study(cell: bench.Cell, seed: int, device, controls: bool) -> list[dict]:
         half = cell.traffic["slots"] // 2
         out.append({"side": "fault_half_batch",
                     **ref_train.compare(r.reference(slots_used=half), ref)})
-        if r.sz["kind"] == "mamba":
+        chunk = r.sz["arch"].state_reset(r.sz)
+        if chunk:
             out.append({"side": "fault_state_reset",
-                        **ref_train.compare(r.reference(state_reset=r.sz["chunk"]), ref)})
+                        **ref_train.compare(r.reference(state_reset=chunk), ref)})
     return out

@@ -1,29 +1,17 @@
-"""The plain reference of the two block kinds the configurations run, in
-float32 (TF32 off), with a control mode that computes every matrix product
-in fp8.
+"""The plain reference of a model's forward pass, in float32 (TF32 off),
+with a control mode that computes every matrix product in fp8.
 
-* ``attn``: a pre-norm decoder block, as the port runs Granite: RMSNorm,
-  grouped-query causal attention with rotary positions (the two halves of a
-  head rotated against each other, theta from the file), scores scaled by
-  the head size's inverse square root, then RMSNorm and a SwiGLU MLP. The
-  published Granite's embedding, attention, residual and logit multipliers
-  are not applied, and the head is untied, as the port runs it (the
-  configuration file lists both).
-* ``mamba``: a Mamba2 block: RMSNorm, the z/x/B/C/dt projections, a
-  depthwise causal convolution and SiLU on x and on B/C, the selective scan
-  in its quadratic (attention-like) form over the whole sequence from a zero
-  state, the per-head skip, the gated RMSNorm and the out-projection. The
-  port computes the scan in chunks; this form shares none of its code.
-
-Then the final RMSNorm, the head over the published vocabulary (the padded
-columns the port masks are left out) and the mean next-token cross-entropy.
-Attention scores are materialised whole: the reference is written for
-clarity, not speed. Each layer runs under activation checkpointing so that
-the 4,096-token layers fit.
+A model is its architecture's period of sub-layers, repeated: the module
+``portbench/reference/arch/<architecture>.py`` gives the block function of
+each sub-layer (see :mod:`portbench.reference.arch`), and this module runs
+the embedding, each period's sub-layers in order, then the final RMSNorm,
+the head over the published vocabulary (the padded columns the port masks
+are left out) and the mean next-token cross-entropy. What the blocks share
+is here: the precision, RMSNorm, rotary positions and the depthwise causal
+convolution. The reference is written for clarity, not speed: each period
+runs under activation checkpointing so that the 4,096-token layers fit.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
@@ -90,7 +78,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * w
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
+def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     """x (B, S, heads, hd): each head's first half rotated against its
     second half by angle position * theta^(-2i/hd)."""
     s, hd = x.shape[1], x.shape[-1]
@@ -102,31 +90,7 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attn_block(x, p, sz, prec: Precision):
-    """One decoder block. x (B, S, d) float32; ``p`` the layer's float32
-    weights by name."""
-    b, s, _ = x.shape
-    h, kv, hd = sz["heads"], sz["kv_heads"], sz["head_dim"]
-    hn = rmsnorm(x, p["attn/norm"], sz["eps"])
-    q = _rope(prec.linear(hn, p["attn/wq"]).reshape(b, s, h, hd), sz["rope_theta"])
-    k = _rope(prec.linear(hn, p["attn/wk"]).reshape(b, s, kv, hd), sz["rope_theta"])
-    v = prec.linear(hn, p["attn/wv"]).reshape(b, s, kv, hd)
-    rep = h // kv
-    q = q.permute(0, 2, 1, 3)                                   # (B, H, S, hd)
-    k = k.repeat_interleave(rep, dim=2).permute(0, 2, 3, 1)     # (B, H, hd, S)
-    v = v.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)     # (B, H, S, hd)
-    scores = prec.mm(q, k) / math.sqrt(hd)
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-    probs = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
-    out = prec.mm(probs, v).permute(0, 2, 1, 3).reshape(b, s, h * hd)
-    x = prec.store(x + prec.linear(out, p["attn/wo"]))
-    hn = rmsnorm(x, p["mlp/norm"], sz["eps"])
-    gate = prec.linear(hn, p["mlp/wi_gate"])
-    up = prec.linear(hn, p["mlp/wi_up"])
-    return x + prec.linear(F.silu(gate) * up, p["mlp/wo"])
-
-
-def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal convolution: x (B, S, C), w (W, C); output t sums
     w[i] * x[t - W + 1 + i]."""
     width, c = w.shape
@@ -134,54 +98,35 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.conv1d(xp, w.t().reshape(c, 1, width), groups=c).transpose(1, 2)
 
 
-def mamba_block(x, p, sz, prec: Precision):
-    """One Mamba2 block. x (B, S, d) float32."""
-    b, s, _ = x.shape
-    inner = sz["expand"] * sz["d"]
-    pd, g, n = sz["head_dim"], sz["groups"], sz["state"]
-    h = inner // pd
-    hn = rmsnorm(x, p["mamba/norm"], sz["eps"])
-    z = prec.linear(hn, p["mamba/w_z"])
-    xin = F.silu(_causal_conv(prec.linear(hn, p["mamba/w_x"]), p["mamba/conv_x"]))
-    bc = F.silu(_causal_conv(prec.linear(hn, p["mamba/w_bc"]), p["mamba/conv_bc"]))
-    dt = F.softplus(prec.linear(hn, p["mamba/w_dt"]) + p["mamba/dt_bias"])   # (B, S, H)
-    bm, cm = bc.split(g * n, dim=-1)
-    bm = bm.reshape(b, s, g, n).permute(0, 2, 3, 1)                          # (B, G, N, S)
-    cm = cm.reshape(b, s, g, n).permute(0, 2, 1, 3)                          # (B, G, S, N)
-    a = -torch.exp(p["mamba/a_log"])                                          # (H,)
-    cum = torch.cumsum(dt * a, dim=1).permute(0, 2, 1)                        # (B, H, S)
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-    if prec.state_reset:
-        block = torch.arange(s, device=x.device) // prec.state_reset
-        causal &= block[:, None] == block[None, :]
-    rel = (cum[..., :, None] - cum[..., None, :]).masked_fill(~causal, float("-inf"))
-    cb = prec.mm(cm, bm).repeat_interleave(h // g, dim=1)                     # (B, H, S, S)
-    mix = cb * torch.exp(rel) * dt.permute(0, 2, 1)[:, :, None, :]
-    xh = xin.reshape(b, s, h, pd)
-    y = prec.mm(mix, xh.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)              # (B, S, H, P)
-    y = y + p["mamba/d_skip"][:, None] * xh
-    y = rmsnorm(y.reshape(b, s, inner) * F.silu(z), p["mamba/out_norm"], sz["eps"])
-    return x + prec.linear(y, p["mamba/w_out"])
-
-
-BLOCKS = {"attn": attn_block, "mamba": mamba_block}
+def _period(flat: dict, sz: dict):
+    """The block function of each sub-layer of a period, each with the sorted
+    names of its leaves under ``blocks/sub<j>/`` in ``flat``, and the number
+    of periods."""
+    blocks = sz["arch"].blocks(sz)
+    names = [sorted(k[len(f"blocks/sub{j}/"):] for k in flat if k.startswith(f"blocks/sub{j}/"))
+             for j in range(len(blocks))]
+    return list(zip(blocks, names)), sz["layers"] // len(blocks)
 
 
 def loss(w: dict, tokens: torch.Tensor, labels: torch.Tensor, sz: dict,
          prec: Precision) -> torch.Tensor:
     """Mean next-token cross-entropy of one micro-batch. ``w`` holds the
-    float32 weights by path (stacked blocks indexed by layer here)."""
+    float32 weights by path (stacked blocks indexed by period here)."""
     vocab = sz["vocab"]
-    block = BLOCKS[sz["kind"]]
-    names = sorted(k[len("blocks/sub0/"):] for k in w if k.startswith("blocks/"))
+    subs, periods = _period(w, sz)
+
+    def run(x, *ps):
+        leaves = iter(ps)
+        for j, (block, names) in enumerate(subs):
+            if j:
+                x = prec.store(x)
+            x = block(x, {k: next(leaves) for k in names}, sz, prec)
+        return x
+
     x = prec.store(w["embed/tok"][tokens.long()])
-    for i in range(sz["layers"]):
-        layer = [w["blocks/sub0/" + k][i] for k in names]
-
-        def run(x, *ps):
-            return block(x, dict(zip(names, ps)), sz, prec)
-
-        x = prec.store(checkpoint(run, x, *layer, use_reentrant=False))
+    for i in range(periods):
+        period = [w[f"blocks/sub{j}/{k}"][i] for j, (_, names) in enumerate(subs) for k in names]
+        x = prec.store(checkpoint(run, x, *period, use_reentrant=False))
     x = rmsnorm(x, w["final_norm"], sz["eps"])
     logits = prec.linear(x, w["head/w"][:, :vocab])
     logz = torch.logsumexp(logits, dim=-1)
@@ -192,11 +137,12 @@ def loss(w: dict, tokens: torch.Tensor, labels: torch.Tensor, sz: dict,
 @torch.no_grad()
 def logits(params: dict, tokens: torch.Tensor, sz: dict, prec: Precision) -> torch.Tensor:
     """Logits (B, S, vocab) of a whole sequence, from the bfloat16 weights
-    by path, each layer's cast to float32 as it is reached."""
-    block = BLOCKS[sz["kind"]]
-    names = sorted(k[len("blocks/sub0/"):] for k in params if k.startswith("blocks/"))
+    by path, each sub-layer's cast to float32 as it is reached."""
+    subs, periods = _period(params, sz)
     x = prec.store(params["embed/tok"][tokens.long()].float())
-    for i in range(sz["layers"]):
-        x = prec.store(block(x, {k: params["blocks/sub0/" + k][i].float() for k in names}, sz, prec))
+    for i in range(periods):
+        for j, (block, names) in enumerate(subs):
+            p = {k: params[f"blocks/sub{j}/{k}"][i].float() for k in names}
+            x = prec.store(block(x, p, sz, prec))
     x = rmsnorm(x, params["final_norm"].float(), sz["eps"])
     return prec.linear(x, params["head/w"][:, : sz["vocab"]].float())
