@@ -14,6 +14,10 @@ from dataclasses import dataclass, replace
 
 import torch
 
+#: weight of the MoE load-balance loss in the training loss, unless a
+#: configuration gives its own (``ArchConfig.aux_loss_coef``)
+AUX_LOSS_COEF = 0.01
+
 #: input shapes assigned to this paper (global batch, seq_len, kind)
 INPUT_SHAPES: dict[str, dict] = {
     "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
@@ -58,6 +62,17 @@ class ArchConfig:
     #: 60 -> 64 lets qwen2-moe use the expert-parallel path (EXPERIMENTS
     #: §Perf) at +6.7 % expert-weight memory.
     pad_experts_to: int = 0
+    #: this chip's share of the routed experts under expert parallelism:
+    #: experts ``expert_offset .. expert_offset + held_experts`` (0 = all).
+    #: The router keeps every expert's column; only the held experts'
+    #: weights are here and only their routed rows are computed.
+    expert_offset: int = 0
+    held_experts: int = 0
+    #: route every choice (no capacity, no drop) through grouped products
+    #: over the held experts' routed rows, instead of the capacity buffer
+    moe_dropless: bool = False
+    #: weight of the load-balance loss in the training loss (0: none added)
+    aux_loss_coef: float = AUX_LOSS_COEF
 
     # --- SSM (Mamba2/SSD) ---
     ssm_state: int = 0  # N
@@ -66,11 +81,16 @@ class ArchConfig:
     ssm_groups: int = 1  # G (B/C groups)
     ssm_conv_width: int = 4
     ssm_chunk: int = 128  # SSD chunk length
+    ssm_conv_bias: bool = False  # a bias on the causal convolution's channels
 
     # --- positions / attention variants ---
     pos_encoding: str = "rope"  # rope | mrope | none
     rope_theta: float = 1e6
     sliding_window: int = 0  # 0 = full attention; >0 = serve-time window
+    #: the attention scores' scale (None: head_dim ** -0.5)
+    attention_multiplier: float | None = None
+    #: scale of each mixer's and MLP's output before it joins the residual
+    residual_multiplier: float = 1.0
     #: long_500k policy: "native" (SSM/hybrid), "sliding" (dense w/ window)
     long_context: str = "sliding"
 
@@ -95,6 +115,11 @@ class ArchConfig:
         49155-wide head replicates full-vocab logits on every TP shard).
         Padded logit columns are masked to -inf in apply_head."""
         return -(-self.vocab_size // 128) * 128
+
+    @property
+    def experts_held(self) -> int:
+        """The routed experts whose weights this chip holds."""
+        return self.held_experts or self.padded_experts
 
     @property
     def resolved_head_dim(self) -> int:
@@ -129,6 +154,7 @@ class ArchConfig:
         num_heads = min(self.num_heads, 4) if self.num_heads else 0
         num_kv = max(1, min(self.num_kv_heads, num_heads)) if num_heads else 0
         experts = min(self.num_experts, 4) if self.num_experts else 0
+        held = min(self.held_experts, experts)
         return replace(
             self,
             name=self.name + "-smoke",
@@ -141,6 +167,8 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             num_experts=experts,
             pad_experts_to=0,
+            held_experts=held,
+            expert_offset=min(self.expert_offset, experts - held) if held else 0,
             top_k=min(self.top_k, 2) if self.top_k else 0,
             moe_d_ff=min(self.moe_d_ff, 128) if self.moe_d_ff else 0,
             num_shared_experts=min(self.num_shared_experts, 1),
@@ -170,10 +198,12 @@ class ArchConfig:
             total += d * 2 * g * n + d * h  # B, C, dt
             total += inner * d  # out proj
             total += self.ssm_conv_width * inner + 2 * h + inner  # conv, A/D, norm
+            if self.ssm_conv_bias:
+                total += inner + 2 * g * n
         if sub.mlp == "mlp":
             total += 3 * d * self.d_ff
         elif sub.mlp == "moe":
-            e = self.top_k if active else self.num_experts
+            e = self.top_k if active else (self.held_experts or self.num_experts)
             total += 3 * d * self.moe_d_ff * e
             total += d * self.num_experts  # router
             if self.num_shared_experts:
@@ -207,6 +237,7 @@ _REGISTRY: dict[str, str] = {
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1p5_large",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
     "falcon-demo-100m": "repro_torch.configs.falcon_demo_100m",
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
 }
 
 

@@ -49,7 +49,9 @@ synchronised). ``device`` names where it ran.
 
 Not copied from the reference: every combination runs, the ones JAX cannot
 lower or compile on its Explicit-axes mesh included; an explicit ``--arch
-falcon-demo-100m`` runs (``--all`` still leaves it out); a combination that
+falcon-demo-100m`` runs (``--all`` still leaves it out, and with it every
+configuration the MoE's mesh paths refuse, :func:`repro_torch.models.moe.
+mesh_refuses`: granite-4.0-h-small); a combination that
 fails, an out-of-memory on the card included, prints ``FAIL`` and makes the
 exit status 1. Nothing is written unless ``--out`` names a directory.
 """
@@ -69,7 +71,7 @@ import torch
 
 from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, get_config, list_archs
 from repro_torch.models import model as model_lib
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.optim import adamw
 from repro_torch.serve import serve_step as serve_lib
 from repro_torch.sharding import P, set_mesh
@@ -369,8 +371,10 @@ def dryrun(arch: str, shape_name: str, multi_pod: bool, device: str = "cuda") ->
 
 def combinations(arch, shape, run_all: bool, multi_pod: str) -> list[tuple[str, str, bool]]:
     """``(arch, shape, multi_pod)`` to run: ``--all`` takes every arch but
-    falcon-demo-100m (as the reference), ``--arch`` the one named."""
-    archs = [a for a in list_archs() if a != "falcon-demo-100m"] if run_all else [arch]
+    falcon-demo-100m (as the reference) and those the mesh paths refuse,
+    ``--arch`` the one named."""
+    archs = [a for a in list_archs() if a != "falcon-demo-100m"
+             and not moe.mesh_refuses(get_config(a))] if run_all else [arch]
     archs = [a for a in archs if a]
     shapes = list(INPUT_SHAPES) if run_all or not shape else [shape]
     pods = {"off": [False], "on": [True], "both": [False, True]}[multi_pod]

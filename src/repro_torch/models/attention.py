@@ -43,20 +43,23 @@ def blocked_attention(
     window: int = 0,
     q_offset: int = 0,
     kv_block: int = 1024,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Online-softmax attention over KV blocks.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) with H a multiple of KVH.
     ``window`` > 0 restricts attention to the last ``window`` keys
     (sliding-window). ``q_offset`` is the absolute position of q[0]
-    (for decode/prefill continuation). The last block is cut at Skv rather
+    (for decode/prefill continuation). ``scale`` multiplies the scores
+    (None: hd^-0.5). The last block is cut at Skv rather
     than padded: padded keys are masked to -1e30 in the reference and add
     nothing to a row that has a real key.
     """
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
-    scale = hd**-0.5
+    if scale is None:
+        scale = hd**-0.5
 
     # (B, KVH, rep, Sq, hd) grouped query layout; scaled in q's type, as
     # the reference does, then carried in float32.
@@ -101,6 +104,14 @@ def _apply_positions(
     return q, k
 
 
+def kernel_query(q: torch.Tensor, scale: float | None) -> torch.Tensor:
+    """q as a kernel takes it, whose scores are scaled by hd^-0.5: times
+    ``scale / hd^-0.5`` where the configuration gives its own ``scale``."""
+    if scale is None:
+        return q
+    return q * (scale * q.shape[-1] ** 0.5)
+
+
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig, cols=None):
     """q, k, v as (B, S, heads, hd): the heads are the weights' columns
     (all of them, or a rank's). ``cols(t, name)``, where given, maps each
@@ -131,10 +142,12 @@ def attend(
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg)
     q, k = _apply_positions(q, k, positions, cfg)
+    scale = cfg.attention_multiplier
     if use_kernel:
-        out = kernel_ops.flash_attention(q, k, v, causal=True, window=window)
+        out = kernel_ops.flash_attention(kernel_query(q, scale), k, v, causal=True,
+                                         window=window)
     else:
-        out = blocked_attention(q, k, v, causal=True, window=window)
+        out = blocked_attention(q, k, v, causal=True, window=window, scale=scale)
     return layers.matmul(out.reshape(b, s, -1), params["wo"]), k, v
 
 
@@ -201,7 +214,8 @@ def decode_attention(
     k_cache, v_cache = cache["k"], cache["v"]
     k_cache[:, pos] = k_new[:, 0]
     v_cache[:, pos] = v_new[:, 0]
-    out = read_cache(q, k_cache, v_cache, pos, window=window, use_kernel=use_kernel)
+    out = read_cache(q, k_cache, v_cache, pos, window=window, use_kernel=use_kernel,
+                     scale=cfg.attention_multiplier)
     return layers.matmul(out.to(x.dtype), params["wo"]), {"k": k_cache, "v": v_cache}
 
 
@@ -222,12 +236,13 @@ def rotate_at(q: torch.Tensor, k: torch.Tensor, pos: int, cfg: ArchConfig):
 
 def read_cache(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, *,
-    window: int = 0, use_kernel: bool = False,
+    window: int = 0, use_kernel: bool = False, scale: float | None = None,
 ) -> torch.Tensor:
     """One query row per sequence, q (B, 1, H, hd), over a whole-sequence
     cache (B, S_max, KVH, hd) whose positions 0..pos are written: the
     attention output (B, 1, H * hd), through ``flash_decode`` or the plain
-    einsum read. The head counts are the tensors' (all heads, or a rank's)."""
+    einsum read, the scores scaled by ``scale`` (None: hd^-0.5). The head
+    counts are the tensors' (all heads, or a rank's)."""
     b, _, h, hd = q.shape
     kv, s_max = k_cache.shape[2], k_cache.shape[1]
     if window and window < s_max:
@@ -242,10 +257,11 @@ def read_cache(
     valid_len = pos + 1 - start
 
     if use_kernel:
-        out = kernel_ops.flash_decode(q.reshape(b, h, hd), k_att, v_att, valid_len)
+        out = kernel_ops.flash_decode(kernel_query(q, scale).reshape(b, h, hd), k_att, v_att,
+                                      valid_len)
     else:
         rep = h // kv
-        qg = q.reshape(b, kv, rep, hd).float() * hd**-0.5
+        qg = q.reshape(b, kv, rep, hd).float() * (hd**-0.5 if scale is None else scale)
         s = torch.einsum("bgrd,bkgd->bgrk", qg, k_att.float())
         valid = torch.arange(k_att.shape[1], device=q.device) < valid_len
         s = s.masked_fill(~valid, NEG_INF)

@@ -33,6 +33,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
+def residual(x: torch.Tensor, y: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``x + y * residual_multiplier``: a mixer's or MLP's output ``y``
+    joining the residual stream ``x`` (no multiply where it is 1)."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
+
+
 # --------------------------------------------------------------- RMSNorm
 def rmsnorm_schema(d: int) -> ParamDef:
     return ParamDef((d,), (None,), init="ones")

@@ -16,8 +16,6 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer
 from repro_torch.models.schema import Schema, axes_tree, init_tree, shape_tree
 
-AUX_LOSS_COEF = 0.01
-
 
 def model_schema(cfg: ArchConfig) -> Schema:
     return {
@@ -104,7 +102,7 @@ def loss_fn(
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, batch["labels"][..., None].long())[..., 0]
     ce = torch.mean(logz - ll)
-    loss = ce + AUX_LOSS_COEF * aux
+    loss = ce + cfg.aux_loss_coef * aux if cfg.aux_loss_coef else ce
     return loss, {"ce": ce, "aux": aux}
 
 

@@ -24,6 +24,19 @@ reference does, on any device:
   index) and adds a token's k rows in ascending expert order: deterministic
   on every device.
 
+A configuration may hold a share of the routed experts
+(``ArchConfig.expert_offset`` and ``held_experts``, one chip's share under
+expert parallelism): the router keeps every expert's column and its top-k,
+and only the choices that land on held experts are computed; the shared
+experts are computed whole. With ``moe_dropless`` the local dispatch drops
+nothing (:func:`_moe_dropless`): the held choices, sorted by expert, run
+through grouped products (``torch._grouped_mm``) on segments whose ends
+are device-side offsets, so the FLOPs follow the routed rows and nothing
+waits on the host; the combine adds each token's held choices back in
+ascending choice order, without a (T, k, D) buffer. Without it the capacity
+buffer above takes the held experts' choices. The mesh paths below take
+neither (:func:`check_mesh`).
+
 Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) whose model
 axis divides ``padded_experts``, with ``moe_shard == "experts"``,
 :func:`apply_moe` takes the reference's expert-parallel path (its
@@ -48,11 +61,15 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models.schema import ParamDef, Schema
+from repro_torch.obs import runtime
 from repro_torch.sharding import P, ambient_mesh
 
 
 def moe_schema(cfg: ArchConfig) -> Schema:
+    """The router over every expert; the routed experts' weights for the
+    held ones (all, unless the configuration holds a share)."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.padded_experts
+    held = cfg.experts_held
     if cfg.moe_shard == "experts":
         ax: tuple = ("model", None, None)
     else:  # "ff": shard the per-expert hidden dim
@@ -60,9 +77,9 @@ def moe_schema(cfg: ArchConfig) -> Schema:
     out: Schema = {
         "norm": layers.rmsnorm_schema(d),
         "router": ParamDef((d, e), (None, None)),
-        "wi_gate": ParamDef((e, d, f), ax),
-        "wi_up": ParamDef((e, d, f), ax),
-        "wo": ParamDef((e, f, d), (ax[0], ax[2], None)),
+        "wi_gate": ParamDef((held, d, f), ax),
+        "wi_up": ParamDef((held, d, f), ax),
+        "wo": ParamDef((held, f, d), (ax[0], ax[2], None)),
     }
     if cfg.num_shared_experts:
         fs = cfg.shared_d_ff * cfg.num_shared_experts
@@ -189,6 +206,127 @@ def _moe_core(
     return y, aux
 
 
+class _Dispatch(torch.autograd.Function):
+    """``xf[order // k]``: the rows of the T*k choices, sorted by expert.
+    The backward adds back only the held choices' gradient rows (those
+    before the held segments' end; the grouped products leave the rest
+    unset), each token's in ascending choice order."""
+
+    @staticmethod
+    def forward(ctx, xf, order, pos, held):
+        ctx.save_for_backward(pos, held)
+        return xf[order // pos.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, held = ctx.saved_tensors
+        acc = torch.zeros((pos.shape[0], g.shape[1]), dtype=torch.float32, device=g.device)
+        for j in range(pos.shape[1]):
+            acc += torch.where(held[:, j, None], g[pos[:, j]].float(), 0.0)
+        return acc.to(g.dtype), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``y[t] = sum_j w[t, j] * o[pos[t, j]]`` in float32 over the held
+    choices (``held``), in ascending choice order: deterministic, one
+    (T, D) accumulator. Rows of ``o`` past the held segments are never
+    read."""
+
+    @staticmethod
+    def forward(ctx, o, w, pos, held):
+        ctx.save_for_backward(o, w, pos, held)
+        y = torch.zeros((pos.shape[0], o.shape[1]), dtype=torch.float32, device=o.device)
+        for j in range(pos.shape[1]):
+            y += torch.where(held[:, j, None], o[pos[:, j]].float() * w[:, j, None], 0.0)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        o, w, pos, held = ctx.saved_tensors
+        # ``pos`` is a permutation of o's rows: every row is written once.
+        go = torch.empty_like(o)
+        gw = torch.empty_like(w)
+        for j in range(pos.shape[1]):
+            go[pos[:, j]] = (g * w[:, j, None]).to(o.dtype)
+            dots = (o[pos[:, j]].float() * g).sum(-1)
+            gw[:, j] = torch.where(held[:, j], dots, 0.0)
+        return go, gw, None, None
+
+
+def grouped_mm(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Rows ``offs[e-1]:offs[e]`` of ``a`` (M, K) times ``w[e]`` (K, N), in
+    the operands' common type (bfloat16 on the card; the CPU takes float32
+    too); rows past ``offs[-1]`` of the result are left unset."""
+    a, w = layers.promote(a, w)
+    return torch._grouped_mm(a, w, offs)
+
+
+def dropless_plan(idx: torch.Tensor, cfg: ArchConfig):
+    """The dispatch of routed choices ``idx`` (T, k) to the held experts.
+
+    Returns ``(order, pos, held, offs, counts)``: ``order`` sorts the T*k
+    flattened choices by held expert (stable), the choices on experts not
+    held here last; ``pos`` (T, k) is each choice's row in that order;
+    ``held`` (T, k) whether its expert is held; ``offs`` (held experts,)
+    int32 the end of each held expert's rows; ``counts`` the choices per
+    held expert. All on the device: nothing here waits on the host."""
+    t, k = idx.shape
+    g = cfg.experts_held
+    local = idx.reshape(-1) - cfg.expert_offset
+    held = (local >= 0) & (local < g)
+    key = torch.where(held, local, g)
+    order = torch.argsort(key, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(t * k, device=idx.device)
+    counts = _counts(key, g + 1)[:g]
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    return order, pos.reshape(t, k), held.reshape(t, k), offs, counts
+
+
+def _moe_dropless(params: dict, xf: torch.Tensor, cfg: ArchConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route over every expert, then the held experts' SwiGLU on exactly
+    their routed rows: no capacity, no drop. Returns the output (T, D) in
+    xf's type, the held experts' part and the shared experts, and the aux
+    loss. Spans: ``moe.route`` (router product, top-k, sort, the gather
+    of the sorted rows), ``moe.experts`` (the grouped products and the
+    shared experts) and ``moe.combine``."""
+    with runtime.span("moe.route"):
+        gates, idx, aux = route(layers.matmul(xf, params["router"]), cfg.top_k,
+                                n_real=cfg.num_experts)
+        order, pos, held, offs, counts = dropless_plan(idx, cfg)
+        runtime.count("moe.held_routed", counts)
+        xs = _Dispatch.apply(xf, order, pos, held)
+    with runtime.span("moe.experts"):
+        act = F.silu(grouped_mm(xs, params["wi_gate"], offs)) * grouped_mm(
+            xs, params["wi_up"], offs)
+        out = grouped_mm(act, params["wo"], offs)
+        shared = _shared(params, xf) if cfg.num_shared_experts else None
+    with runtime.span("moe.combine"):
+        y = _Combine.apply(out, torch.where(held, gates, 0.0), pos, held).to(xf.dtype)
+        if shared is not None:
+            y = y + shared.to(xf.dtype)
+    return y, aux
+
+
+def mesh_refuses(cfg: ArchConfig) -> bool:
+    """Whether the mesh paths refuse ``cfg``: the expert-parallel path and
+    :func:`repro_torch.models.sharded.moe` split or replicate every expert
+    and dispatch by capacity, so they take neither a held share of the
+    experts nor dropless routing."""
+    return cfg.moe_dropless or bool(cfg.held_experts)
+
+
+def check_mesh(cfg: ArchConfig) -> None:
+    """Raise where :func:`mesh_refuses` ``cfg``, rather than drop its tokens
+    or misread its weights."""
+    if mesh_refuses(cfg):
+        raise ValueError(
+            f"{cfg.name}: the MoE's mesh paths take neither a held share of the experts "
+            f"(held_experts={cfg.held_experts}) nor dropless routing "
+            f"(moe_dropless={cfg.moe_dropless}): run it without a mesh")
+
+
 def _ep_axes(cfg: ArchConfig, mesh=None):
     """(mesh, batch axes, model axis size) when the expert-parallel path
     applies on ``mesh`` (None: the ambient mesh), else None (no mesh, no
@@ -274,7 +412,10 @@ def apply_moe(
         b, s, d = x.shape
         hn = layers.rmsnorm(x, params["norm"], cfg.norm_eps)
         xf = hn.reshape(b * s, d)
-        y, aux = _moe_core(params, xf, cfg, 0, cfg.padded_experts)
+        if cfg.moe_dropless:
+            y, aux = _moe_dropless(params, xf, cfg)
+            return y.reshape(b, s, d), aux
+        y, aux = _moe_core(params, xf, cfg, cfg.expert_offset, cfg.experts_held)
         y = y.to(x.dtype)
         if cfg.num_shared_experts:
             y = y + _shared(params, xf).to(x.dtype)
@@ -283,6 +424,7 @@ def apply_moe(
     from repro_torch.sharding.manual import as_dtensor, gather, is_dtensor, local_shard
     from repro_torch.sharding.partition import mesh_axis_size
 
+    check_mesh(cfg)
     mesh, ba, _ = ep
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t.requires_grad for t in params.values() if isinstance(t, torch.Tensor))):

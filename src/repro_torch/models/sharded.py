@@ -205,10 +205,11 @@ def attention_step(p: dict, spec: dict, x: torch.Tensor, cfg: ArchConfig, positi
         hl = h // tp
         group = (r * hl + torch.arange(hl, device=x.device)) // rep
         out = attention.blocked_attention(q, k[:, :, group], v[:, :, group], causal=True,
-                                          window=window)
+                                          window=window, scale=cfg.attention_multiplier)
         out = out.reshape(b, s, -1)
     else:
-        out = attention.blocked_attention(q, k, v, causal=True, window=window)
+        out = attention.blocked_attention(q, k, v, causal=True, window=window,
+                                          scale=cfg.attention_multiplier)
         out = split(out.reshape(b, s, -1), "model", mesh, -1)
     return leave(layers.matmul(out, p["wo"]), "model", mesh), k, v
 
@@ -216,6 +217,7 @@ def attention_step(p: dict, spec: dict, x: torch.Tensor, cfg: ArchConfig, positi
 def moe(p: dict, spec: dict, x: torch.Tensor, tok_axes: tuple, cfg: ArchConfig, mesh):
     """Returns (y (B, S, D) in x's type, aux). ``tok_axes``: the DP axes the
     tokens' batch dim is split over."""
+    moe_lib.check_mesh(cfg)
     ep = moe_lib._ep_axes(cfg, mesh)
     tp = part.mesh_axis_size(mesh, "model")
     if ep is not None:

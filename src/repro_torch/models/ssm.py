@@ -31,7 +31,7 @@ def mamba_schema(cfg: ArchConfig) -> Schema:
     d = cfg.d_model
     inner, h = cfg.ssm_inner, cfg.ssm_heads
     g, n, w = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv_width
-    return {
+    out = {
         "norm": layers.rmsnorm_schema(d),
         "w_z": ParamDef((d, inner), (None, "model")),
         "w_x": ParamDef((d, inner), (None, "model")),
@@ -45,14 +45,20 @@ def mamba_schema(cfg: ArchConfig) -> Schema:
         "out_norm": ParamDef((inner,), ("model",), init="ones"),
         "w_out": ParamDef((inner, d), ("model", None)),
     }
+    if cfg.ssm_conv_bias:
+        out["conv_x_bias"] = ParamDef((inner,), ("model",), init="zeros")
+        out["conv_bc_bias"] = ParamDef((2 * g * n,), (None,), init="zeros")
+    return out
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv. x: (B, S, C); w: (W, C)."""
+def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, C); w: (W, C); ``bias`` (C,) or None."""
     width = w.shape[0]
     xp = F.pad(x, (0, 0, width - 1, 0))
     s = x.shape[1]
-    return sum(xp[:, i : i + s, :] * w[i] for i in range(width))
+    out = sum(xp[:, i : i + s, :] * w[i] for i in range(width))
+    return out if bias is None else out + bias
 
 
 def ssd_scan(
@@ -149,8 +155,8 @@ def mamba_forward(
     bc_raw = layers.matmul(hn, params["w_bc"])
     dt = F.softplus(layers.matmul(hn, params["w_dt"]) + params["dt_bias"])
 
-    xin = F.silu(causal_conv(xin_raw, params["conv_x"]))
-    bc = F.silu(causal_conv(bc_raw, params["conv_bc"]))
+    xin = F.silu(causal_conv(xin_raw, params["conv_x"], params.get("conv_x_bias")))
+    bc = F.silu(causal_conv(bc_raw, params["conv_bc"], params.get("conv_bc_bias")))
     b_mat, c_mat = torch.chunk(bc, 2, dim=-1)
 
     a = -torch.exp(params["a_log"].float())
@@ -229,6 +235,9 @@ def decode_mamba(
     bc_hist = torch.cat([cache["conv_bc"], bc], dim=1)
     conv_x = torch.einsum("bwc,wc->bc", *layers.promote(xin_hist, params["conv_x"]))
     conv_bc = torch.einsum("bwc,wc->bc", *layers.promote(bc_hist, params["conv_bc"]))
+    if "conv_x_bias" in params:
+        conv_x = conv_x + params["conv_x_bias"]
+        conv_bc = conv_bc + params["conv_bc_bias"]
     xin = F.silu(conv_x)[:, None]
     bc_c = F.silu(conv_bc)[:, None]
     b_mat, c_mat = torch.chunk(bc_c, 2, dim=-1)

@@ -62,19 +62,21 @@ def _apply_sublayer(
     window: int,
     use_kernel: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Residual sub-layer application. Returns (x, aux_loss)."""
+    """Residual sub-layer application (each output scaled by
+    ``residual_multiplier``). Returns (x, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if sub.mixer == "attn":
-        x = x + attention.apply_attention(
+        dh = attention.apply_attention(
             p["attn"], x, cfg, positions, window=window, use_kernel=use_kernel
         )
     else:
-        x = x + ssm.apply_mamba(p["mamba"], x, cfg, use_kernel=use_kernel)
+        dh = ssm.apply_mamba(p["mamba"], x, cfg, use_kernel=use_kernel)
+    x = layers.residual(x, dh, cfg)
     if sub.mlp == "mlp":
-        x = x + layers.apply_mlp(p["mlp"], x, cfg)
+        x = layers.residual(x, layers.apply_mlp(p["mlp"], x, cfg), cfg)
     elif sub.mlp == "moe":
         y, aux = moe.apply_moe(p["moe"], x, cfg)
-        x = x + y
+        x = layers.residual(x, y, cfg)
     return x, aux
 
 
@@ -90,31 +92,24 @@ def apply_blocks(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the full stack. Returns (hidden (B,S,D), total aux loss).
 
-    With ``remat`` and autograd recording, each period runs under
-    :func:`torch.utils.checkpoint.checkpoint`: only its input is kept, and
-    the backward pass recomputes its activations (the reference's
-    ``jax.checkpoint`` keeps the matrix products' outputs too; a full
-    recompute gives the same numbers). Without autograd it changes
-    nothing."""
-
-    def period_body(h, aux_sum, period):
-        for j, sub in enumerate(cfg.period):
-            h, aux = _apply_sublayer(
-                h, period[f"sub{j}"], sub, cfg, positions, window, use_kernel
-            )
-            aux_sum = aux_sum + aux
-        return h, aux_sum
-
+    With ``remat`` and autograd recording, each sub-layer (a mixer and its
+    MLP) runs under :func:`torch.utils.checkpoint.checkpoint`: only its
+    input is kept, and the backward pass recomputes its activations one
+    sub-layer at a time, so a long period never holds all its sub-layers'
+    activations at once (the reference's ``jax.checkpoint`` over a period
+    keeps the matrix products' outputs too; a full recompute gives the same
+    numbers). Without autograd it changes nothing."""
     recompute = remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_periods):
         period = period_view(blocks, i)
-        if recompute:
-            x, aux_total = checkpoint(
-                period_body, x, aux_total, period, use_reentrant=False
-            )
-        else:
-            x, aux_total = period_body(x, aux_total, period)
+        for j, sub in enumerate(cfg.period):
+            args = (x, period[f"sub{j}"], sub, cfg, positions, window, use_kernel)
+            if recompute:
+                x, aux = checkpoint(_apply_sublayer, *args, use_reentrant=False)
+            else:
+                x, aux = _apply_sublayer(*args)
+            aux_total = aux_total + aux
     return x, aux_total
 
 
@@ -197,10 +192,10 @@ def decode_blocks(
                 dh, new = ssm.decode_mamba(period[key]["mamba"], x, cache[key], cfg)
                 for name, t in new.items():
                     cache[key][name].copy_(t)
-            x = x + dh
+            x = layers.residual(x, dh, cfg)
             if sub.mlp == "mlp":
-                x = x + layers.apply_mlp(period[key]["mlp"], x, cfg)
+                x = layers.residual(x, layers.apply_mlp(period[key]["mlp"], x, cfg), cfg)
             elif sub.mlp == "moe":
                 y, _ = moe.apply_moe(period[key]["moe"], x, cfg)
-                x = x + y
+                x = layers.residual(x, y, cfg)
     return x, caches

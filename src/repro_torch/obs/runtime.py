@@ -25,6 +25,25 @@ shared no-op context every time. When on, a span
 regions the loops time anyway (``step_seconds``, ``prefill_s``): one pair
 of clock reads serves both.
 
+The dropless MoE layer (:mod:`repro_torch.models.moe`, a configuration
+with ``moe_dropless``, as granite-4.0-h-small) opens ``moe.route`` (router
+product, top-k, the sort by held expert and the gather of the sorted rows),
+``moe.experts`` (the grouped products and the shared expert) and
+``moe.combine``, inside ``train.forward`` and, in a sub-layer checkpoint's
+recompute, inside ``train.backward``; the MoE's own backward runs in
+``train.backward``, outside them.
+
+:func:`count` is a counter beside the spans, on and off with them: off it
+is a flag check and never touches the tensor; on it keeps a device tensor
+of counts (``moe.held_routed``: the routed choices of one MoE layer call
+on each held expert) with the names of the spans open around it, and
+nothing waits on it. :func:`counts` reads the record (a read waits on the
+device, so read it only after recording or profiling): per counter name
+the ``ticks``, the ``sum`` of every count and the ``max`` single count
+(the busiest held expert of any one call); with
+``within="train.forward"`` only the ticks made inside that span, so that
+a recompute's second count of the same choices is left out.
+
 :func:`totals` sums the record by span name; :func:`reset` clears it. The
 profiler's trace is the export; :func:`tracer` hands the record to
 :meth:`SpanTracer.to_json` for a trace of the spans alone. Spans open and
@@ -40,7 +59,8 @@ from torch.profiler import record_function
 
 from repro_torch.obs.tracer import SpanTracer
 
-__all__ = ["enabled", "recording", "reset", "span", "timed", "totals", "tracer"]
+__all__ = ["count", "counts", "enabled", "recording", "reset", "span", "timed", "totals",
+           "tracer"]
 
 try:
     from torch.autograd import profiler as _autograd_profiler
@@ -60,8 +80,10 @@ _tracer = SpanTracer()
 #: position of a span among the tracer's events -> its CUDA event pair,
 #: or its device seconds once read
 _device: dict = {}
-#: the track of each open span, innermost last
+#: the track and name of each open span, innermost last
 _open: list = []
+#: each counter tick: (name, device tensor of counts, names of the open spans)
+_counters: list = []
 
 
 class _Null:
@@ -85,9 +107,9 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         if self.on:
-            self._track = _open[-1] if _open else _LOOPS.get(
+            self._track = _open[-1][0] if _open else _LOOPS.get(
                 self.name.split(".")[0], ("host", self.name.split(".")[0]))
-            _open.append(self._track)
+            _open.append((self._track, self.name))
             self._record = (_tracer, _device)
             self._rf = record_function(self.name)
             self._rf.__enter__()
@@ -116,6 +138,29 @@ class _Span:
     def seconds(self) -> float:
         """Host seconds from entry to exit."""
         return self.end - self.start
+
+
+def count(name: str, value: torch.Tensor) -> None:
+    """Keep ``value`` (a tensor of counts) under ``name`` while spans
+    record; when off, one check of a flag."""
+    if _recording or _profiling():
+        _counters.append((name, value.detach(), tuple(n for _, n in _open)))
+
+
+def counts(within: str | None = None) -> dict[str, dict]:
+    """For each counter name: ``ticks``, ``sum`` (of every count of every
+    tick) and ``max`` (the largest single count), over the ticks made
+    while a span named ``within`` was open (None: every tick)."""
+    out: dict[str, dict] = {}
+    for name, value, opened in _counters:
+        if within is not None and within not in opened:
+            continue
+        t = out.setdefault(name, {"ticks": 0, "sum": 0, "max": 0})
+        v = value.cpu()
+        t["ticks"] += 1
+        t["sum"] += int(v.sum())
+        t["max"] = max(t["max"], int(v.max()))
+    return out
 
 
 def enabled() -> bool:
@@ -155,8 +200,8 @@ def tracer() -> SpanTracer:
 
 def reset() -> None:
     """Clear the record (spans still open close into the old one)."""
-    global _tracer, _device
-    _tracer, _device = SpanTracer(), {}
+    global _tracer, _device, _counters
+    _tracer, _device, _counters = SpanTracer(), {}, []
 
 
 def _device_seconds(i: int) -> float | None:

@@ -100,13 +100,13 @@ def make_prefill_step(
                     c = {"k": k, "v": v}
                 else:
                     dh, c = ssm.mamba_forward(p["mamba"], h, cfg)
-                h = h + dh
+                h = layers.residual(h, dh, cfg)
                 cache_out[key] = c
                 if sub.mlp == "mlp":
-                    h = h + layers.apply_mlp(p["mlp"], h, cfg)
+                    h = layers.residual(h, layers.apply_mlp(p["mlp"], h, cfg), cfg)
                 elif sub.mlp == "moe":
                     y, _ = moe.apply_moe(p["moe"], h, cfg)
-                    h = h + y
+                    h = layers.residual(h, y, cfg)
             per_period.append(cache_out)
         caches = {
             key: {name: torch.stack([c[key][name] for c in per_period])

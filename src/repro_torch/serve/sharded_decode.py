@@ -81,18 +81,19 @@ def decode_step(
         for j, sub in enumerate(cfg.period):
             key = f"sub{j}"
             if sub.mixer == "attn":
-                x = x + _attention(*sh.use_tree(period[key]["attn"], pspec[key]["attn"], mesh),
-                                   x, cache[key], cspec[key], pos, s_max, cfg, mesh,
-                                   window, use_kernel)
+                dh = _attention(*sh.use_tree(period[key]["attn"], pspec[key]["attn"], mesh),
+                                x, cache[key], cspec[key], pos, s_max, cfg, mesh,
+                                window, use_kernel)
             else:
-                x = x + _mamba(*sh.use_tree(period[key]["mamba"], pspec[key]["mamba"], mesh),
-                               x, cache[key], cspec[key], cfg, mesh)
+                dh = _mamba(*sh.use_tree(period[key]["mamba"], pspec[key]["mamba"], mesh),
+                            x, cache[key], cspec[key], cfg, mesh)
+            x = layers.residual(x, dh, cfg)
             if sub.mlp == "mlp":
-                x = x + sh.mlp(*sh.use_tree(period[key]["mlp"], pspec[key]["mlp"], mesh), x,
-                               cfg, mesh)
+                x = layers.residual(x, sh.mlp(*sh.use_tree(period[key]["mlp"], pspec[key]["mlp"],
+                                                           mesh), x, cfg, mesh), cfg)
             elif sub.mlp == "moe":
-                x = x + sh.moe(*sh.use_tree(period[key]["moe"], pspec[key]["moe"], mesh), x,
-                               tok_axes, cfg, mesh)[0]
+                x = layers.residual(x, sh.moe(*sh.use_tree(period[key]["moe"], pspec[key]["moe"],
+                                                           mesh), x, tok_axes, cfg, mesh)[0], cfg)
     final_norm, _ = sh.use(p_loc["final_norm"], p_spec["final_norm"], mesh)
     x = layers.rmsnorm(x, final_norm, cfg.norm_eps)
     logits = sh.head(*sh.use_tree(p_loc["head"], p_spec["head"], mesh), x, cfg, mesh)
@@ -150,7 +151,7 @@ def _attention(p, spec, x, cache, cspec, pos, s_max, cfg: ArchConfig, mesh, wind
         seq_axes = ()
     if not seq_axes:
         out = attention.read_cache(q, k_cache, v_cache, pos, window=window,
-                                   use_kernel=use_kernel)
+                                   use_kernel=use_kernel, scale=cfg.attention_multiplier)
     else:
         # Each rank's slice gives a partial softmax; combine over the
         # sequence's axes: the global row maximum, then the exp-weighted
@@ -158,7 +159,8 @@ def _attention(p, spec, x, cache, cspec, pos, s_max, cfg: ArchConfig, mesh, wind
         _, _, hx, hd = q.shape
         kvx = k_cache.shape[2]
         lo = max(pos - window + 1, 0) if window and window < s_max else 0
-        qg = q.reshape(bl, kvx, hx // kvx, hd).float() * hd**-0.5
+        scale = hd**-0.5 if cfg.attention_multiplier is None else cfg.attention_multiplier
+        qg = q.reshape(bl, kvx, hx // kvx, hd).float() * scale
         s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache.float())
         g = start + torch.arange(s_loc, device=x.device)
         s = s.masked_fill(~((g >= lo) & (g <= pos)), NEG_INF)

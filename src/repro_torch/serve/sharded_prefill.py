@@ -76,13 +76,13 @@ def prefill_step(params, batch: dict, cfg: ArchConfig, mesh, *, window: int = 0,
                                                  mesh), x, cfg, mesh)
             out[key] = {n: _take(t, P(*cspecs[key][n][1:]), cshapes[key][n][0][1:], mesh)
                         for n, t in made.items()}
-            x = x + dh
+            x = layers.residual(x, dh, cfg)
             if sub.mlp == "mlp":
-                x = x + sh.mlp(*sh.use_tree(period[key]["mlp"], pspec[key]["mlp"], mesh),
-                               x, cfg, mesh)
+                x = layers.residual(x, sh.mlp(*sh.use_tree(period[key]["mlp"], pspec[key]["mlp"],
+                                                           mesh), x, cfg, mesh), cfg)
             elif sub.mlp == "moe":
-                x = x + sh.moe(*sh.use_tree(period[key]["moe"], pspec[key]["moe"], mesh),
-                               x, tok_axes, cfg, mesh)[0]
+                x = layers.residual(x, sh.moe(*sh.use_tree(period[key]["moe"], pspec[key]["moe"],
+                                                           mesh), x, tok_axes, cfg, mesh)[0], cfg)
         per_period.append(out)
     final_norm, _ = sh.use(p_loc["final_norm"], p_spec["final_norm"], mesh)
     x = layers.rmsnorm(x, final_norm, cfg.norm_eps)

@@ -133,19 +133,21 @@ def loss_fn(p: dict, spec: dict, mb: dict, cfg: ArchConfig, mesh):
             for j, sub in enumerate(cfg.period):
                 key = f"sub{j}"
                 if sub.mixer == "attn":
-                    h = h + sh.attention_step(
+                    dh = sh.attention_step(
                         *sh.use_tree(period[key]["attn"], pspec[key]["attn"], mesh), h, cfg,
                         positions, 0, mesh)[0]
                 else:
-                    h = h + sh.mamba(*sh.use_tree(period[key]["mamba"], pspec[key]["mamba"],
-                                                  mesh), h, cfg, mesh)[0]
+                    dh = sh.mamba(*sh.use_tree(period[key]["mamba"], pspec[key]["mamba"],
+                                               mesh), h, cfg, mesh)[0]
+                h = layers.residual(h, dh, cfg)
                 if sub.mlp == "mlp":
-                    h = h + sh.mlp(*sh.use_tree(period[key]["mlp"], pspec[key]["mlp"], mesh),
-                                   h, cfg, mesh)
+                    h = layers.residual(h, sh.mlp(*sh.use_tree(period[key]["mlp"],
+                                                               pspec[key]["mlp"], mesh),
+                                                  h, cfg, mesh), cfg)
                 elif sub.mlp == "moe":
                     y, a = sh.moe(*sh.use_tree(period[key]["moe"], pspec[key]["moe"], mesh),
                                   h, ba, cfg, mesh)
-                    h, aux_sum = h + y, aux_sum + a
+                    h, aux_sum = layers.residual(h, y, cfg), aux_sum + a
             return h, aux_sum
 
         period = sh.period(p["blocks"], i)
@@ -159,7 +161,7 @@ def loss_fn(p: dict, spec: dict, mb: dict, cfg: ArchConfig, mesh):
     hp, hs = sh.use_tree(p["head"], spec["head"], mesh)
     vs, col0 = sh.head_col0(hp, hs, cfg, mesh)
     ce = sh.cross_entropy(sh.head(hp, hs, x, cfg, mesh), mb["labels"], vs, col0, mesh)
-    return ce + model_lib.AUX_LOSS_COEF * aux
+    return ce + cfg.aux_loss_coef * aux if cfg.aux_loss_coef else ce
 
 
 def _dp_dims(spec: P, ba) -> bool:

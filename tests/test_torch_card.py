@@ -811,6 +811,43 @@ def test_moe_layer_on_card_equals_cpu_plain_version(card, t):
     np.testing.assert_allclose(float(aux), float(aux_want), rtol=1e-6)
 
 
+def test_dropless_moe_share_on_card_waits_on_nothing_and_repeats(card):
+    """granite-4.0-h-small's layer at its published widths, 9 of 72 experts
+    held, 2,048 tokens in bf16: the forward under the sync debug mode's
+    "error" (no host synchronisation), the output and every gradient the
+    same bits on a second run (no atomics in the dispatch or combine), and
+    the output within bf16 rounding of the float32 forward on the CPU (the
+    card's grouped products take bf16 alone)."""
+    from dataclasses import replace
+
+    from repro_torch.models import moe
+
+    cfg = replace(get_config("granite-4.0-h-small"), held_experts=9, expert_offset=9)
+    torch.manual_seed(0)
+    params = {name: (torch.randn(pdef.shape, device=card) * 0.02).to(torch.bfloat16)
+              .requires_grad_(True) for name, pdef in moe.moe_schema(cfg).items()}
+    x = torch.randn((1, 2048, cfg.d_model), device=card, dtype=torch.bfloat16)
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _ = moe.apply_moe(params, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        grads = torch.autograd.grad(y.float().square().sum(), list(params.values()))
+        return y.detach(), grads
+
+    y, grads = run()
+    y2, grads2 = run()
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    with torch.no_grad():
+        want, _ = moe.apply_moe({k: v.float().cpu() for k, v in params.items()},
+                                x.float().cpu(), replace(cfg, dtype="float32"))
+    err = (y.float().cpu() - want).norm() / want.norm()
+    assert float(err) < 2e-2, float(err)
+
+
 def test_whatif_leave_one_out_on_card_equals_committed_sidecar(card, tmp_path, monkeypatch):
     """``python -m repro_torch.launch.whatif --report <single_gpu_throttle>
     --leave-one-out`` with the default device (the card: the CUDA

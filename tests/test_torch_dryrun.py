@@ -26,6 +26,7 @@ fake process group of 512 ranks that a module fixture makes and destroys.
 * The whole 80-combination sweep on the CPU route, one case per arch, is
   ``slow``.
 """
+import ast
 import json
 import os
 import subprocess
@@ -43,7 +44,21 @@ from repro_torch.launch import dryrun
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
-ARCHS = [a for a in list_archs() if a != "falcon-demo-100m"]
+
+
+def _jax_archs() -> set[str]:
+    """The names the JAX package's registry lists, read from its source:
+    this file keeps JAX out of its own process."""
+    with open(os.path.join(SRC, "repro", "configs", "base.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == "_REGISTRY":
+            return set(ast.literal_eval(node.value))
+    raise LookupError("no _REGISTRY in the JAX package's configs")
+
+
+#: the archs both packages list (the port's alone have no JAX side)
+ARCHS = [a for a in list_archs() if a != "falcon-demo-100m" and a in _jax_archs()]
 SHAPES = list(INPUT_SHAPES)
 COMBOS = [(a, s, mp) for a in ARCHS for s in SHAPES for mp in (False, True)]
 XLA_ARGUMENT_BYTES = {("granite-3-8b", "train_4k"): 1_309_616_132,

@@ -161,3 +161,68 @@ def test_a_span_open_across_a_reset_closes_into_the_old_record():
             old = runtime.tracer()
             runtime.reset()
     assert len(old) == 1 and len(runtime.tracer()) == 0
+
+
+def _moe_cfg(**kw):
+    return replace(tconfigs.get_config("granite-4.0-h-small").smoke(), dtype="float32", **kw)
+
+
+def test_moe_spans_nest_under_the_forward_and_its_recompute():
+    """The dropless MoE's spans open inside ``train.forward`` and, in the
+    recompute of a sub-layer's checkpoint, inside ``train.backward``: each
+    of one period's ten layers' three spans once in each, a slot (one
+    intra-op thread: many small operations beside the suite's other
+    workers)."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _moe_cfg(num_layers=10)
+    params = model_lib.init_params(cfg, 0, device="cpu")
+    params = torch.utils._pytree.tree_map(lambda t: t.float(), params)
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 32), generator=torch.Generator().manual_seed(0))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with runtime.recording():
+            step(params, adamw.init(params), {"tokens": toks, "labels": toks.roll(-1, -1)})
+    finally:
+        torch.set_num_threads(threads)
+    got = {}
+    for name, _, parent in _parents():
+        if name.startswith("moe."):
+            got[(name, parent)] = got.get((name, parent), 0) + 1
+    assert got == {(n, p): 2 * cfg.num_layers for n in ("moe.route", "moe.experts", "moe.combine")
+                   for p in ("train.forward", "train.backward")}
+
+
+def test_a_counter_off_costs_a_flag_check():
+    class Untouchable:
+        def detach(self):
+            raise AssertionError("an off counter read its value")
+
+    assert not runtime.enabled()
+    runtime.count("moe.held_routed", Untouchable())
+    assert runtime.counts() == {}
+
+
+def test_counter_sums_equal_the_routed_count_of_a_seeded_layer():
+    """Experts 1 and 2 of 4 held: the counter's sum is the choices routed to
+    them, its max the busier one's; ``within`` keeps what a span held."""
+    from repro_torch.models import layers, moe
+
+    cfg = _moe_cfg(held_experts=2, expert_offset=1)
+    p = {k: v[0].float() for k, v in
+         model_lib.init_params(cfg, 1, device="cpu")["blocks"]["sub0"]["moe"].items()}
+    x = torch.randn((2, 48, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    with runtime.recording():
+        moe.apply_moe(p, x, cfg)
+        with runtime.span("train.forward"):
+            moe.apply_moe(p, x, cfg)
+    hn = layers.rmsnorm(x, p["norm"], cfg.norm_eps).reshape(96, -1)
+    _, idx, _ = moe.route(layers.matmul(hn, p["router"]), cfg.top_k, n_real=cfg.num_experts)
+    per = [int((idx == e).sum()) for e in (1, 2)]
+    assert runtime.counts() == {"moe.held_routed": {"ticks": 2, "sum": 2 * sum(per),
+                                                     "max": max(per)}}
+    assert runtime.counts(within="train.forward")["moe.held_routed"]["sum"] == sum(per)
+    assert runtime.counts(within="serve.batch") == {}

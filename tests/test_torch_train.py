@@ -62,6 +62,18 @@ from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import train_step as tts
 from repro_torch.train import trainer as ttrainer
 
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and the trainers' many small operations slow down by tens of
+    times when every worker spins a thread per core."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 F32_TOL = dict(rtol=1e-5, atol=1e-7)
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 #: a GPU_SLOW on gpu:1 at 80 % of the way through the smoke job's 12th
