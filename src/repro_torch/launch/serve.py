@@ -40,7 +40,8 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.train import parse_injection
 from repro_torch.models import layers, model as model_lib, transformer
 from repro_torch.obs import runtime
-from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+from repro_torch.serve.serve_step import (DecodeGraph, graphable, make_decode_step,
+                                          make_prefill_step)
 
 #: FalconDetect's verification window on the per-token latency stream
 VERIFY_WINDOW = 6
@@ -79,6 +80,9 @@ class ServeResult:
     latencies: list[float]
     #: True when the latencies came from the performance model
     modeled: bool
+    #: decode steps served by replaying a CUDA graph (0 where the step
+    #: cannot be captured: see :func:`serve`)
+    graph_steps: int = 0
 
 
 def _sync(device: torch.device) -> None:
@@ -127,6 +131,16 @@ def serve(
     enqueue), ``serve.wait`` (the synchronise; ``step_s`` runs from the
     dispatch's start to the wait's end), ``falcon.observe`` and
     ``serve.sample``.
+
+    Where :func:`repro_torch.serve.serve_step.graphable` holds (a CUDA
+    device, no ambient mesh, no serve window), the decode runs on a side
+    stream with its position on the device: the first step eagerly, which
+    warms it, then ``serve.capture`` records one step into a CUDA graph
+    (:class:`~repro_torch.serve.serve_step.DecodeGraph`), and every later
+    step's ``serve.dispatch`` copies in the token and position and replays
+    it (``graph_steps`` counts them; so does the runtime counter
+    ``serve.graph_replays``, once a batch). Elsewhere every step runs
+    eagerly at a host position.
     """
     with runtime.span("serve.batch"):
         return _serve(cfg, params, prompt, gen, use_kernel, inject, resolve_device(device))
@@ -154,32 +168,51 @@ def _serve(cfg, params, prompt, gen, use_kernel, inject, dev) -> ServeResult:
     caches = transformer.grow_caches(caches, cfg, total)
 
     tok, _ = _next_input(params, prefill_logits, cfg, b)
+    graph = stream = None
+    if gen > 1 and graphable(cfg, total, dev):
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            graph = DecodeGraph(decode, params, caches, tok)
     logits = prefill_logits
     events, step_s, latencies, generated = [], [], [], []
     wall = 0.0
-    for step in range(gen):
-        with runtime.span("serve.decode", token=step):
-            with runtime.timed("serve.dispatch") as dispatch:
-                logits, caches = decode(params, tok, caches, s0 + step)
-            with runtime.timed("serve.wait") as wait:
-                _sync(dev)
-            measured = wait.end - dispatch.start
-            with runtime.span("falcon.observe"):
-                injector.apply(sim.state, wall)
-                latency = sim.iteration_time() if injector.injections else measured
-                wall += latency
-                ev = detector.observe(latency, wall)
-                if ev is not None:
-                    events.append((step, ev))
-            step_s.append(measured)
-            latencies.append(latency)
-            with runtime.span("serve.sample"):
-                tok, rec = _next_input(params, logits, cfg, b)
-                generated.append(rec.cpu().numpy())
+    with torch.cuda.stream(stream):
+        for step in range(gen):
+            if graph is not None and step == 1:
+                with runtime.span("serve.capture"):
+                    graph.capture()
+            with runtime.span("serve.decode", token=step):
+                with runtime.timed("serve.dispatch") as dispatch:
+                    if graph is None:
+                        logits, caches = decode(params, tok, caches, s0 + step)
+                    else:
+                        logits = graph(tok, s0 + step)
+                with runtime.timed("serve.wait") as wait:
+                    _sync(dev)
+                measured = wait.end - dispatch.start
+                with runtime.span("falcon.observe"):
+                    injector.apply(sim.state, wall)
+                    latency = sim.iteration_time() if injector.injections else measured
+                    wall += latency
+                    ev = detector.observe(latency, wall)
+                    if ev is not None:
+                        events.append((step, ev))
+                step_s.append(measured)
+                latencies.append(latency)
+                with runtime.span("serve.sample"):
+                    tok, rec = _next_input(params, logits, cfg, b)
+                    generated.append(rec.cpu().numpy())
+        logits = logits.clone()   # the graph's output is its own
+    if stream is not None:
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    graph_steps = graph.replays if graph is not None else 0
+    runtime.count("serve.graph_replays", torch.tensor(graph_steps))
     tokens = np.stack(generated, axis=1) if generated else np.zeros((b, 0), np.int64)
     return ServeResult(tokens=tokens, events=events, prefill_logits=prefill_logits,
                        logits=logits, prefill_s=timed_prefill.seconds, step_s=step_s,
-                       latencies=latencies, modeled=bool(injector.injections))
+                       latencies=latencies, modeled=bool(injector.injections),
+                       graph_steps=graph_steps)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -187,7 +187,7 @@ def decode_attention(
     params: dict,
     x: torch.Tensor,
     cache: dict,
-    pos: int,
+    pos: int | torch.Tensor,
     cfg: ArchConfig,
     positions_full: torch.Tensor | None = None,
     *,
@@ -195,7 +195,8 @@ def decode_attention(
     use_kernel: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """One-token decode. x: (B, 1, D); cache k/v: (B, S_max, KVH, hd);
-    pos: the current position, a host int. Returns (out, cache).
+    pos: the current position, a host int or a 0-d integer tensor on x's
+    device. Returns (out, cache).
 
     The new K/V row is written into ``cache`` IN PLACE (the returned dict
     holds the same tensors), where the reference's ``dynamic_update_slice``
@@ -203,49 +204,71 @@ def decode_attention(
     move ~1.4 GB per token at the full-width serve shape.
 
     With ``window`` > 0, only the trailing ``window`` cache entries are
-    attended (sliding-window decode). ``use_kernel`` routes the cache read
-    through the CUDA flash-decode kernel; its ``valid_len`` is computed on
-    the host from ``pos`` (``pos + 1``, or ``pos + 1 - start`` in the window
-    branch), so no layer waits on the device for it.
+    attended (sliding-window decode; ``pos`` a host int). ``use_kernel``
+    routes the cache read through the CUDA flash-decode kernel. With a host
+    int its ``valid_len`` is computed on the host (``pos + 1``, or ``pos + 1
+    - start`` in the window branch), so no layer waits on the device for
+    it; with a tensor the position stays on the device throughout (rotary
+    angles, cache row, ``valid_len``), and nothing is read back to the host,
+    so the step can be captured into a CUDA graph.
     """
-    pos = int(pos)
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     q, k_new, v_new = _project_qkv(params, x, cfg)
     q, k_new = rotate_at(q, k_new, pos, cfg)
     k_cache, v_cache = cache["k"], cache["v"]
-    k_cache[:, pos] = k_new[:, 0]
-    v_cache[:, pos] = v_new[:, 0]
+    if isinstance(pos, torch.Tensor):
+        row = pos.reshape(1).long()
+        k_cache.index_copy_(1, row, k_new.to(k_cache.dtype))
+        v_cache.index_copy_(1, row, v_new.to(v_cache.dtype))
+    else:
+        k_cache[:, pos] = k_new[:, 0]
+        v_cache[:, pos] = v_new[:, 0]
     out = read_cache(q, k_cache, v_cache, pos, window=window, use_kernel=use_kernel,
                      scale=cfg.attention_multiplier)
     return layers.matmul(out.to(x.dtype), params["wo"]), {"k": k_cache, "v": v_cache}
 
 
-def rotate_at(q: torch.Tensor, k: torch.Tensor, pos: int, cfg: ArchConfig):
+def _positions_at(pos: int | torch.Tensor, shape: tuple, device) -> torch.Tensor:
+    """``pos`` (a host int or a 0-d tensor) as an int32 tensor of ``shape``."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(torch.int32).expand(shape)
+    return torch.full(shape, pos, dtype=torch.int32, device=device)
+
+
+def rotate_at(q: torch.Tensor, k: torch.Tensor, pos: int | torch.Tensor, cfg: ArchConfig):
     """One token's q and k (B, 1, heads, hd) with the positional encoding
-    of ``pos`` (a host int)."""
+    of ``pos`` (a host int or a 0-d integer tensor on their device)."""
     b = q.shape[0]
     if cfg.pos_encoding == "rope":
-        pos_arr = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
+        pos_arr = _positions_at(pos, (b, 1), q.device)
         q = layers.apply_rope(q, pos_arr, cfg.rope_theta)
         k = layers.apply_rope(k, pos_arr, cfg.rope_theta)
     elif cfg.pos_encoding == "mrope":
-        pos_arr = torch.full((3, b, 1), pos, dtype=torch.int32, device=q.device)
+        pos_arr = _positions_at(pos, (3, b, 1), q.device)
         q = layers.apply_mrope(q, pos_arr, cfg.rope_theta)
         k = layers.apply_mrope(k, pos_arr, cfg.rope_theta)
     return q, k
 
 
 def read_cache(
-    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, *,
-    window: int = 0, use_kernel: bool = False, scale: float | None = None,
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    pos: int | torch.Tensor, *, window: int = 0, use_kernel: bool = False,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """One query row per sequence, q (B, 1, H, hd), over a whole-sequence
     cache (B, S_max, KVH, hd) whose positions 0..pos are written: the
     attention output (B, 1, H * hd), through ``flash_decode`` or the plain
     einsum read, the scores scaled by ``scale`` (None: hd^-0.5). The head
-    counts are the tensors' (all heads, or a rank's)."""
+    counts are the tensors' (all heads, or a rank's). ``pos`` is a host int
+    or a 0-d integer tensor on q's device; the window's slice needs a host
+    int (ValueError otherwise)."""
     b, _, h, hd = q.shape
     kv, s_max = k_cache.shape[2], k_cache.shape[1]
     if window and window < s_max:
+        if isinstance(pos, torch.Tensor):
+            raise ValueError("read_cache: the sliding window slices the cache at a host "
+                             "offset, so pos must be a host int")
         # Slide: attend to the `window` keys ending at pos (static size).
         start = max(pos - window + 1, 0)
         k_att = k_cache[:, start:start + window]

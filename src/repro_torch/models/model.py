@@ -111,7 +111,7 @@ def decode_step(
     params: dict,
     tokens: torch.Tensor,
     caches: dict,
-    pos: int,
+    pos: int | torch.Tensor,
     cfg: ArchConfig,
     *,
     window: int = 0,
@@ -120,8 +120,9 @@ def decode_step(
     """Generate logits for ONE new token given the cache state.
 
     tokens: (B, 1) integer (or (B, 1, K) audio / (B, 1, D) vision embeds);
-    pos: the position, a host int. Returns (logits (B, 1, V[, K]), caches),
-    the caches updated in place.
+    pos: the position, a host int or a 0-d integer tensor on the device
+    (then nothing in the step reads a value back to the host). Returns
+    (logits (B, 1, V[, K]), caches), the caches updated in place.
     """
     if cfg.modality == "vision_embeds":
         x = tokens.to(cfg.activation_dtype)  # already embeddings

@@ -167,13 +167,14 @@ def decode_blocks(
     blocks: dict,
     x: torch.Tensor,
     caches: dict,
-    pos: int,
+    pos: int | torch.Tensor,
     cfg: ArchConfig,
     *,
     window: int = 0,
     use_kernel: bool = False,
 ) -> tuple[torch.Tensor, dict]:
-    """One-token decode through the stack. Returns (hidden, caches): the
+    """One-token decode through the stack at ``pos`` (a host int or a 0-d
+    integer tensor on the device). Returns (hidden, caches): the
     new K/V rows are written into ``caches`` in place (see
     :func:`repro_torch.models.attention.decode_attention`), the new SSM
     state and conv histories copied into their period's slots, and the

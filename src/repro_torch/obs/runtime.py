@@ -7,9 +7,10 @@ plane's ``observe`` or the serve loop::
         ...
 
 It is on while a ``torch.profiler`` profile is active, and inside
-:func:`recording` (tests, operators). When off it costs one check of a
-flag: no clock read, no ``record_function``, no CUDA event, and the same
-shared no-op context every time. When on, a span
+:func:`recording` (tests, operators), except inside :func:`paused`. When
+off it costs a check of its flags: no clock read, no ``record_function``,
+no CUDA event, and the same shared no-op context every time. When on, a
+span
 
 1. enters ``torch.profiler.record_function(name)``, so that it sits in the
    profiler's trace as a ``user_annotation`` on the kernels' clock;
@@ -34,7 +35,7 @@ recompute, inside ``train.backward``; the MoE's own backward runs in
 ``train.backward``, outside them.
 
 :func:`count` is a counter beside the spans, on and off with them: off it
-is a flag check and never touches the tensor; on it keeps a device tensor
+checks the flags and never touches the tensor; on it keeps a device tensor
 of counts (``moe.held_routed``: the routed choices of one MoE layer call
 on each held expert) with the names of the spans open around it, and
 nothing waits on it. :func:`counts` reads the record (a read waits on the
@@ -43,6 +44,12 @@ the ``ticks``, the ``sum`` of every count and the ``max`` single count
 (the busiest held expert of any one call); with
 ``within="train.forward"`` only the ticks made inside that span, so that
 a recompute's second count of the same choices is left out.
+
+Inside :func:`paused` nothing records, profiler or not: the serve loop
+captures its decode step into a CUDA graph there, where a span's CUDA
+events would be captured too and its host times would time the capture,
+not the step. The serve loop counts ``serve.graph_replays`` once a batch:
+the decode steps it served by replaying that graph.
 
 :func:`totals` sums the record by span name; :func:`reset` clears it. The
 profiler's trace is the export; :func:`tracer` hands the record to
@@ -59,8 +66,8 @@ from torch.profiler import record_function
 
 from repro_torch.obs.tracer import SpanTracer
 
-__all__ = ["count", "counts", "enabled", "recording", "reset", "span", "timed", "totals",
-           "tracer"]
+__all__ = ["count", "counts", "enabled", "paused", "recording", "reset", "span", "timed",
+           "totals", "tracer"]
 
 try:
     from torch.autograd import profiler as _autograd_profiler
@@ -76,6 +83,7 @@ except AttributeError:  # a torch without the Python-side flag
 _LOOPS = {"train": ("host", "trainer"), "serve": ("host", "serve")}
 
 _recording = False
+_paused = False
 _tracer = SpanTracer()
 #: position of a span among the tracer's events -> its CUDA event pair,
 #: or its device seconds once read
@@ -140,10 +148,14 @@ class _Span:
         return self.end - self.start
 
 
+def _on() -> bool:
+    return not _paused and (_recording or _profiling())
+
+
 def count(name: str, value: torch.Tensor) -> None:
     """Keep ``value`` (a tensor of counts) under ``name`` while spans
-    record; when off, one check of a flag."""
-    if _recording or _profiling():
+    record; when off, a check of the flags."""
+    if _on():
         _counters.append((name, value.detach(), tuple(n for _, n in _open)))
 
 
@@ -164,14 +176,15 @@ def counts(within: str | None = None) -> dict[str, dict]:
 
 
 def enabled() -> bool:
-    """True while spans record: under a profiler, or inside :func:`recording`."""
-    return _recording or _profiling()
+    """True while spans record: under a profiler, or inside :func:`recording`,
+    and not inside :func:`paused`."""
+    return _on()
 
 
 def span(name: str, **ids):
     """A context manager around one region; ``ids`` (step, token, slot)
     tie it to its request."""
-    if _recording or _profiling():
+    if _on():
         return _Span(name, ids, True)
     return _NULL
 
@@ -179,7 +192,7 @@ def span(name: str, **ids):
 def timed(name: str, **ids) -> _Span:
     """:func:`span` whose entry and exit always read the host clock; its
     ``seconds`` is the region's host time, on or off."""
-    return _Span(name, ids, _recording or _profiling())
+    return _Span(name, ids, _on())
 
 
 @contextmanager
@@ -191,6 +204,18 @@ def recording():
         yield
     finally:
         _recording = saved
+
+
+@contextmanager
+def paused():
+    """No span or counter records inside this context, even under a
+    profiler or inside :func:`recording`."""
+    global _paused
+    saved, _paused = _paused, True
+    try:
+        yield
+    finally:
+        _paused = saved
 
 
 def tracer() -> SpanTracer:

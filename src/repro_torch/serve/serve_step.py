@@ -16,6 +16,10 @@ Under an ambient mesh (:func:`repro_torch.sharding.set_mesh`) both steps
 run per rank on local shards with explicit collectives
 (:mod:`repro_torch.serve.sharded_prefill`,
 :mod:`repro_torch.serve.sharded_decode`).
+
+:class:`DecodeGraph` holds the decode step's position on the device and
+replays the step from a CUDA graph; :func:`graphable` says where it can:
+on a CUDA device, with no ambient mesh and no serve window.
 """
 from __future__ import annotations
 
@@ -24,8 +28,14 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import flash_attention as _fa, flash_decode as _fd
 from repro_torch.models import attention, layers, model as model_lib, moe, ssm, transformer
+from repro_torch.obs import runtime
 from repro_torch.sharding import ambient_mesh
+
+#: the kernel wrappers whose launch counters a replay advances by the
+#: launches its capture recorded
+_COUNTED = (_fd.flash_decode, _fa.flash_attention)
 
 
 def serve_window(cfg: ArchConfig, seq_len: int) -> int:
@@ -55,6 +65,75 @@ def make_decode_step(
         )
 
     return decode_step
+
+
+def graphable(cfg: ArchConfig, seq_len: int, device) -> bool:
+    """Whether the decode step can run from a CUDA graph
+    (:class:`DecodeGraph`): on a CUDA device, with no ambient mesh (the
+    sharded step takes host positions) and no serve window (the sliding
+    read slices the cache at a host offset)."""
+    return (torch.device(device).type == "cuda" and ambient_mesh() is None
+            and not serve_window(cfg, seq_len))
+
+
+class DecodeGraph:
+    """A decode step of :func:`make_decode_step` at a position held on the
+    device, captured once into a CUDA graph and replayed for each later
+    token.
+
+    The graph's static inputs are the step's input (the token, or the
+    embedding of a vision-embeds model), a 0-d int32 position and
+    ``caches``, which every step updates in place; ``params`` are read in
+    place. A call before :meth:`capture` runs the step eagerly on the same
+    static inputs: the first one warms, on the capturing stream, every
+    kernel and library handle that the capture records. Make, call and
+    capture it on a side stream: the default stream cannot be captured.
+    """
+
+    def __init__(self, decode: Callable, params: dict, caches: dict, tok: torch.Tensor):
+        self.decode, self.params, self.caches = decode, params, caches
+        self.tok = torch.empty_like(tok)
+        self.pos = torch.zeros((), dtype=torch.int32, device=tok.device)
+        self.graph = None
+        #: the graph's output; each replay overwrites it
+        self.logits = None
+        #: (wrapper, launches) the capture recorded
+        self.launches: tuple = ()
+        #: steps served by replay
+        self.replays = 0
+
+    def __call__(self, tok: torch.Tensor, pos: int) -> torch.Tensor:
+        """The logits of the step at ``pos`` with input ``tok``: the input
+        copied and the position written on the device, then the step run
+        eagerly or, once captured, replayed (its logits are then
+        :attr:`logits`)."""
+        self.tok.copy_(tok)
+        self.pos.fill_(pos)
+        if self.graph is None:
+            return self.decode(self.params, self.tok, self.caches, self.pos)[0]
+        self.graph.replay()
+        self.replays += 1
+        for wrapper, n in self.launches:
+            wrapper.launches += n
+        return self.logits
+
+    def capture(self) -> None:
+        """Capture one step. Nothing of :mod:`repro_torch.obs.runtime`
+        records inside; the kernel wrappers' launch counters stay as they
+        were (the capture runs nothing) and advance by the captured
+        launches at each replay."""
+        before = [w.launches for w in _COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        with runtime.paused():
+            graph.capture_begin()
+            try:
+                self.logits, _ = self.decode(self.params, self.tok, self.caches, self.pos)
+            finally:
+                graph.capture_end()
+        self.launches = tuple((w, w.launches - n) for w, n in zip(_COUNTED, before))
+        for w, n in zip(_COUNTED, before):
+            w.launches = n
+        self.graph = graph
 
 
 # ------------------------------------------------------------------ prefill

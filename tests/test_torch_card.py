@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, list_archs
 from repro_torch.core.detector import FleetDetect
 from repro_torch.kernels import bocd_step as bk
 from repro_torch.kernels import cell_reduce as ck
@@ -897,3 +897,126 @@ def test_mesh_checks_on_card_at_smoke_size(card):
     assert r0["collectives"]["all_reduce"] == "served"
     assert all(c["launches"] > 0 for c in r0["seq_shard"] if c["kernel"])
     assert r0["adaptive"]["step_err"] <= cs.MESH_STEP_RTOL < r0["adaptive"]["control_err"]
+
+
+# ---------------------------------------------------- the decode's CUDA graph
+GRAPH_B, GRAPH_PROMPT, GRAPH_GEN = 4, 64, 16
+
+
+def _serve_inputs(cfg, seed=0):
+    """A prompt for ``serve``: tokens (B, S[, K]), or for a vision-embeds
+    model an ``{"embeds", "positions"}`` batch."""
+    rng = np.random.default_rng(seed)
+    if cfg.modality == "vision_embeds":
+        pos = np.arange(GRAPH_PROMPT)
+        return {"embeds": rng.normal(size=(GRAPH_B, GRAPH_PROMPT, cfg.d_model)),
+                "positions": np.broadcast_to(np.stack([pos, pos // 2, pos % 5])[:, None],
+                                             (3, GRAPH_B, GRAPH_PROMPT)).copy()}
+    shape = (GRAPH_B, GRAPH_PROMPT)
+    if cfg.modality == "audio_codes":
+        shape += (cfg.num_codebooks,)
+    return rng.integers(0, cfg.vocab_size, shape)
+
+
+def _graphed_and_eager(card, cfg, monkeypatch, gen=GRAPH_GEN):
+    """``serve(use_kernel=True)`` as it runs on the card (the decode
+    replayed from its graph) and with ``graphable`` refused (every step
+    eager at host positions), on the same weights and prompt; the first
+    run's ``flash_decode`` launches."""
+    from repro_torch.launch import serve as serve_lib
+
+    params = model_lib.init_params(cfg, 0, device=card)
+    prompt = _serve_inputs(cfg)
+    fd.flash_decode.launches = 0
+    graphed = serve_lib.serve(cfg, params, prompt, gen=gen, use_kernel=True, device=card)
+    torch.cuda.synchronize()
+    launches = fd.flash_decode.launches
+    with monkeypatch.context() as m:
+        m.setattr(serve_lib, "graphable", lambda *a: False)
+        eager = serve_lib.serve(cfg, params, prompt, gen=gen, use_kernel=True, device=card)
+    return graphed, eager, launches
+
+
+def _published_heads(layers=4):
+    """granite-3-8b at its published widths (32/8 heads of 128, d 4,096,
+    FFN 12,800, vocab 49,155), cut to ``layers`` layers."""
+    from dataclasses import replace
+
+    return replace(get_config("granite-3-8b"), num_layers=layers)
+
+
+@pytest.mark.parametrize("shape", ["smoke", "published-heads"])
+def test_graphed_decode_serves_the_eager_tokens(card, shape, monkeypatch):
+    """granite-3-8b's serve at smoke width and at the published head shape
+    with a 64-token prompt: the decode replayed from its CUDA graph serves
+    the tokens of the eager step (whose last logits it matches within bf16
+    rounding), replays every step after the first (the eager warm-up), and
+    counts one ``flash_decode`` launch a layer and step. A planted fault, a
+    replay whose position never advances, must serve other tokens."""
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.serve import serve_step
+
+    cfg = get_config("granite-3-8b").smoke() if shape == "smoke" else _published_heads()
+    graphed, eager, launches = _graphed_and_eager(card, cfg, monkeypatch)
+    print(f"{shape}: last logits max abs diff "
+          f"{float((graphed.logits.float() - eager.logits.float()).abs().max())}")
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+    _close(graphed.logits, eager.logits, torch.bfloat16)
+    assert (graphed.graph_steps, eager.graph_steps) == (GRAPH_GEN - 1, 0)
+    assert launches == cfg.num_layers * GRAPH_GEN
+
+    real = serve_step.DecodeGraph.__call__
+    monkeypatch.setattr(serve_step.DecodeGraph, "__call__",
+                        lambda self, tok, pos: real(self, tok, GRAPH_PROMPT))
+    params = model_lib.init_params(cfg, 0, device=card)
+    stuck = serve_lib.serve(cfg, params, _serve_inputs(cfg), gen=GRAPH_GEN,
+                            use_kernel=True, device=card)
+    assert stuck.graph_steps == GRAPH_GEN - 1
+    assert not np.array_equal(stuck.tokens, eager.tokens)
+
+
+@pytest.mark.parametrize("arch", sorted(list_archs()))
+def test_every_architecture_replays_its_decode_from_a_graph(card, arch, monkeypatch):
+    """Each registered architecture at smoke size (dense, MoE by capacity
+    and dropless, Mamba2, hybrids, M-RoPE vision embeds, audio codebooks):
+    its decode step is captured, replayed for every step after the first,
+    and serves the eager step's tokens."""
+    cfg = get_config(arch).smoke()
+    graphed, eager, _ = _graphed_and_eager(card, cfg, monkeypatch, gen=8)
+    assert graphed.graph_steps == 7
+    np.testing.assert_array_equal(graphed.tokens, eager.tokens)
+    _close(graphed.logits, eager.logits, torch.bfloat16)
+
+
+def test_the_profiler_sees_the_replayed_decode_kernels(card):
+    """Under torch.profiler, a serve whose decode is replayed from its graph
+    shows ``decode_kernel`` for the replayed steps, and the
+    ``serve.graph_replays`` counter holds them: the trace's readings of the
+    decode (``flash_decode_roofline.serve``) need both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.obs import runtime
+
+    cfg = get_config("granite-3-8b").smoke()
+    params = model_lib.init_params(cfg, 0, device=card)
+    prompt = _serve_inputs(cfg)
+    serve(cfg, params, prompt, gen=4, use_kernel=True, device=card)   # built and bound
+    torch.cuda.synchronize()
+    runtime.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            res = serve(cfg, params, prompt, gen=GRAPH_GEN, use_kernel=True, device=card)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+        replays = runtime.counts()["serve.graph_replays"]
+    finally:
+        runtime.reset()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    decode = sum("decode_kernel<" in n for n in names)
+    print(f"decode_kernel {decode} of {cfg.num_layers * GRAPH_GEN} launches in the trace")
+    assert res.graph_steps == GRAPH_GEN - 1
+    assert replays == {"ticks": 1, "sum": GRAPH_GEN - 1, "max": GRAPH_GEN - 1}
+    # The profiler may drop a kernel now and then; most replayed ones show.
+    assert decode >= cfg.num_layers * (GRAPH_GEN - 1) // 2

@@ -34,6 +34,7 @@ from repro_torch.configs import base as tconfigs
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models import transformer as ttransformer
 from repro_torch.models.schema import count_params as tcount
@@ -313,6 +314,101 @@ def test_kernel_prefill_refuses_an_ambient_mesh():
     prefill = tserve.make_prefill_step(cfg, S, use_kernel=True)
     with set_mesh(object()), pytest.raises(ValueError, match="no kernel route"):
         prefill({}, {"tokens": torch.zeros((B, S), dtype=torch.long)})
+
+
+#: a dense RoPE model, a hybrid with attention (Mamba2, MoE, no positional
+#: encoding) and an M-RoPE vision-embeds model
+DEVICE_POS_ARCHS = ["granite-3-8b", DEEP, "qwen2-vl-72b"]
+
+
+def _step_input(batch, cfg, params, tok):
+    """A decode step's input: the token, or its embedding for a
+    vision-embeds model (as ``launch.serve._next_input`` gives it)."""
+    if cfg.modality == "vision_embeds":
+        return tlayers.apply_embed(params["embed"], tok, cfg)
+    return tok
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("arch", DEVICE_POS_ARCHS)
+def test_decode_at_a_device_position_equals_the_host_position(arch, use_kernel):
+    """Two decode steps with ``pos`` a 0-d int32 tensor (the position a CUDA
+    graph's replays read) give the logits and every cache leaf of the same
+    steps at the host int, bit for bit, on the plain and the kernel route
+    (``flash_decode``'s plain version on the CPU); and the eager call of a
+    ``DecodeGraph``, the warm-up before its capture, gives the same."""
+    _, cfg, _, params, _, batch = setup(arch, "bfloat16")
+    with torch.no_grad():
+        _, caches = tserve.make_prefill_step(cfg, S)(params, batch)
+        caches = ttransformer.grow_caches(caches, cfg, S + 2)
+        host = {k: {n: t.clone() for n, t in c.items()} for k, c in caches.items()}
+        dev = {k: {n: t.clone() for n, t in c.items()} for k, c in caches.items()}
+        warm = {k: {n: t.clone() for n, t in c.items()} for k, c in caches.items()}
+        tokens = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (B, 2)))
+        decode = tserve.make_decode_step(cfg, S + 2, use_kernel=use_kernel)
+        graph = tserve.DecodeGraph(decode, params, warm,
+                                   _step_input(batch, cfg, params, tokens[:, :1]))
+        for i in range(2):
+            x = _step_input(batch, cfg, params, tokens[:, i:i + 1])
+            want, _ = decode(params, x, host, S + i)
+            got, _ = decode(params, x, dev, torch.tensor(S + i, dtype=torch.int32))
+            warmed = graph(x, S + i)
+            for logits in (got, warmed):
+                assert logits.dtype == want.dtype and torch.equal(logits, want)
+            for key in host:
+                for name in host[key]:
+                    assert torch.equal(dev[key][name], host[key][name]), (i, key, name)
+                    assert torch.equal(warm[key][name], host[key][name]), (i, key, name)
+    assert graph.replays == 0 and graph.graph is None
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", DEEP])
+def test_serve_on_the_cpu_replays_no_graph_and_serves_the_eager_tokens(arch):
+    """Without a card no decode step is captured: ``graph_steps`` and the
+    ``serve.graph_replays`` counter read 0, and ``serve`` gives the tokens
+    and last logits of the greedy loop over decode steps at host
+    positions."""
+    from repro_torch.obs import runtime
+
+    cfg = tconfigs.get_config(arch).smoke()
+    params = tmodel.init_params(cfg, 0, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S)))
+    runtime.reset()
+    try:
+        with runtime.recording():
+            res = tlaunch.serve(cfg, params, prompt, gen=GEN, use_kernel=True, device="cpu")
+        assert runtime.counts()["serve.graph_replays"] == {"ticks": 1, "sum": 0, "max": 0}
+    finally:
+        runtime.reset()
+    assert res.graph_steps == 0
+    with torch.no_grad():
+        logits, caches = tserve.make_prefill_step(cfg, S, use_kernel=True)(
+            params, {"tokens": prompt})
+        caches = ttransformer.grow_caches(caches, cfg, S + GEN)
+        decode = tserve.make_decode_step(cfg, S + GEN, use_kernel=True)
+        want = []
+        for step in range(GEN):
+            tok = torch.argmax(logits[:, -1], dim=-1).reshape(B, 1)
+            logits, caches = decode(params, tok, caches, S + step)
+            want.append(torch.argmax(logits[:, -1], dim=-1).numpy())
+    np.testing.assert_array_equal(res.tokens, np.stack(want, axis=1))
+    assert torch.equal(res.logits, logits)
+
+
+def test_the_decode_graph_engages_on_a_card_without_mesh_or_window():
+    """``graphable`` reads the device, the ambient mesh and the serve
+    window, and nothing of the model's name."""
+    from repro_torch.sharding import set_mesh
+
+    cfg = tconfigs.get_config("granite-3-8b")
+    cuda = torch.device("cuda")
+    assert tserve.graphable(cfg, 4096, cuda)
+    assert tserve.graphable(tconfigs.get_config("mamba2-2.7b"), 200_000, cuda)
+    assert not tserve.graphable(cfg, 4096, torch.device("cpu"))
+    assert tserve.serve_window(cfg, 70_000) and not tserve.graphable(cfg, 70_000, cuda)
+    with set_mesh(object()):
+        assert not tserve.graphable(cfg, 4096, cuda)
 
 
 def test_loss_matches_jax():
